@@ -1,0 +1,508 @@
+"""Device-resident fused mapping engine (torch port of the map half of
+``downpore_tpu/ops/map_engine.py``, flat retrieval gate).
+
+Resident state on the engine's device:
+
+* ``membership [H, CP] int8`` — hashed seed-bucket -> chunk matrix,
+* ``t_seeds / t_pos [CP, nt] int32`` — padded per-chunk seed tables,
+* ``usable_dev [UL] int8`` — seeds that carry information (not in every
+  chunk).
+
+Per batch of query windows, one ``dispatch_packed`` call runs retrieval
+counts and the distinct-seed gate (int8 membership rows gathered and
+summed), selects every passing (query, chunk) pair with ``torch.nonzero``,
+builds anchors against the resident chunk tables, runs the chain DP
+(``cuda_chain.chain_scan``, forward and backward) and packs the lean
+top-4 summaries.  ``collect_arrays_many`` brings the rows to the host for
+the mapper's candidate walk.
+
+Dropped from the JAX engine because no output depends on them: the
+fixed pair budget and its 4x escalation (``nonzero`` yields every passing
+pair, which is what the escalated run converges to), batch-size buckets,
+combined int16 uploads, async host copies and clipped gathers.  The
+binned gate (>= 1024 chunks) and meshes are not ported yet and raise.
+"""
+from __future__ import annotations
+
+from collections import Counter
+from typing import List
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from . import match as match_ops
+from .chain import make_anchors_topk, dp_from_anchors, summarize_dp, \
+    compact_indices
+
+# binned-retrieval engagement threshold of the JAX engine: at or above it
+# ``binned=True`` would take the two-level gate, which is not ported
+_BINNED_MIN_C = 1024
+
+# bound on the [m, R, C] int8 block one retrieval gather materializes
+_GATHER_ELEMS = 1 << 28
+# pairs per anchor-build step: bounds the [CH, NQ, NT] equality tensor
+_ANCHOR_CHUNK = 1024
+
+
+def _row_chunks(M: int, R: int, C: int):
+    """Row slices that keep each gathered ``[m, R, C]`` block under
+    ``_GATHER_ELEMS`` elements (the JAX engine's ``lax.map`` chunking)."""
+    if M * R * C <= _GATHER_ELEMS:
+        return [slice(0, M)]
+    mc = max(1, _GATHER_ELEMS // max(1, R * C))
+    mc = max(8, (mc // 8) * 8)
+    return [slice(lo, min(M, lo + mc)) for lo in range(0, M, mc)]
+
+
+def _gather_rows(membership, b):
+    """``membership`` rows of bucket slots ``b [m, R]`` (pad -1 -> 0)."""
+    live = b >= 0
+    rows = membership[b.clamp(min=0).long()]                  # [m, R, C]
+    return torch.where(live[:, :, None], rows, 0)
+
+
+def _count_rows(membership, buckets):
+    """Retrieval hit counts: ``buckets [M, R]`` (pad -1) -> ``[M, C]``
+    int32, the sum of the int8 membership rows of each row's live
+    buckets."""
+    C = membership.shape[1]
+    M, R = buckets.shape
+    out = torch.empty((M, C), dtype=torch.int32, device=membership.device)
+    for sl in _row_chunks(M, R, C):
+        out[sl] = _gather_rows(membership, buckets[sl]).sum(
+            dim=1, dtype=torch.int32)
+    return out
+
+
+def _count_rows_pair(membership, rb, db):
+    """Run and distinct retrieval counts from one gather: on the derived
+    path the distinct buckets ``db`` are ``rb`` with duplicate slots
+    masked to -1 (same slot layout), so the ``rb`` rows serve both sums."""
+    C = membership.shape[1]
+    M, R = rb.shape
+    first = db >= 0
+    c = torch.empty((M, C), dtype=torch.int32, device=membership.device)
+    d = torch.empty_like(c)
+    for sl in _row_chunks(M, R, C):
+        rows = _gather_rows(membership, rb[sl])
+        c[sl] = rows.sum(dim=1, dtype=torch.int32)
+        d[sl] = torch.where(first[sl][:, :, None], rows, 0).sum(
+            dim=1, dtype=torch.int32)
+    return c, d
+
+
+def _hash(ids, H: int, hashed: bool):
+    """Device twin of ``match.hash_ids``: int64 product masked to the
+    power-of-two ``H`` keeps the same low bits as numpy's 64-bit
+    ``(id * knuth) % H``."""
+    if not hashed:
+        return ids
+    return ((ids.long() * match_ops.KNUTH) & (H - 1)).to(torch.int32)
+
+
+def _derive_membership(t_seeds, H: int, hashed: bool):
+    """Resident ``[H, CP]`` int8 membership scattered from the chunk seed
+    tables: the host build's unique-seed -> bucket assignment.  Valid
+    only when no chunk's seed list was truncated to the table width."""
+    CP, nt = t_seeds.shape
+    live = t_seeds >= 0
+    rows = torch.where(live, _hash(t_seeds, H, hashed), H).long()
+    cols = torch.arange(CP, device=t_seeds.device)[:, None].expand(CP, nt)
+    mem = torch.zeros((H + 1, CP), dtype=torch.int8, device=t_seeds.device)
+    mem[rows.reshape(-1), cols.reshape(-1)] = 1
+    return mem[:H].contiguous()
+
+
+def _unpack_membership(packed, C: int):
+    """``[H, ceil(C/8)]`` uint8 bit-rows -> resident ``[H, C]`` int8 0/1."""
+    H, CB = packed.shape
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
+    bits = (packed[:, :, None] >> shifts) & 1
+    return bits.reshape(H, CB * 8)[:, :C].to(torch.int8).contiguous()
+
+
+def _derive_buckets(q_seeds, usable, H: int, hashed: bool):
+    """Run and distinct buckets of each query row, from its seed ids:
+    run-collapse over usable seeds (ref Matches semantics,
+    seeds/seeds.go:335-353), hash to buckets, mark first occurrences.
+    Exact whenever every extracted seed of a row fits ``q_seeds``."""
+    M, nq = q_seeds.shape
+    dev = q_seeds.device
+    live = q_seeds >= 0
+    us = live & (usable[q_seeds.clamp(0, usable.shape[0] - 1).long()] > 0)
+    slot = torch.arange(nq, dtype=torch.int32, device=dev)
+    idx = torch.where(us, slot[None, :], -1)
+    pa = torch.cummax(idx, dim=1).values
+    prev = torch.cat([torch.full((M, 1), -1, dtype=pa.dtype, device=dev),
+                      pa[:, :-1]], dim=1)
+    pv = torch.gather(q_seeds, 1, prev.clamp(min=0).long())
+    pv = torch.where(prev >= 0, pv, -2)
+    run_start = us & (pv != q_seeds)
+    rb = torch.where(run_start, _hash(q_seeds, H, hashed), -1)
+    eq = (rb[:, :, None] == rb[:, None, :]) \
+        & (rb[:, :, None] >= 0) & (rb[:, None, :] >= 0)
+    earlier = torch.tril(torch.ones((nq, nq), dtype=torch.bool, device=dev),
+                         -1)[None]
+    dup = (eq & earlier).any(dim=2)
+    db = torch.where(run_start & ~dup, rb, -1)
+    return rb, db
+
+
+def _chain_pack_tail(mi, ci, dc, q_seeds, q_pos, base_min, q_len, t_seeds,
+                     t_pos, *, k: int, top_k: int, lean: bool):
+    """Chain DP + summary packing over the selected (query, chunk) pairs.
+    Returns ``(head [N, 3] int32 (query row, chunk, distinct count),
+    packed [N, W] int16)``."""
+    N = mi.shape[0]
+    parts = []
+    for lo in range(0, N, _ANCHOR_CHUNK):
+        m_c = mi[lo:lo + _ANCHOR_CHUNK]
+        c_c = ci[lo:lo + _ANCHOR_CHUNK]
+        parts.append(make_anchors_topk(q_seeds[m_c], q_pos[m_c],
+                                       t_seeds[c_c], t_pos[c_c],
+                                       per_seed=2))
+    anchors = {key: torch.cat([p[key] for p in parts])
+               for key in parts[0]}
+    out = dp_from_anchors(anchors, k)
+    packed = summarize_dp(out, base_min[mi], q_len[mi], k, top_k,
+                          lean=lean)
+    head = torch.stack([mi.to(torch.int32), ci.to(torch.int32),
+                        dc.to(torch.int32)], dim=1)
+    # summaries fit int16 for <= 10 kb chunks; the JAX engine clamps the
+    # fetched rows to int16, and empty-row sentinels clamp with them
+    packed16 = packed.clamp(-32768, 32767).to(torch.int16)
+    return head, packed16
+
+
+def _map_from_counts(counts, dcounts, q_seeds, q_pos, min_count, base_min,
+                     q_len, t_seeds, t_pos, *, k: int, top_k: int = 4,
+                     lean: bool = False):
+    """Gate + chain + summary from retrieval counts.  Passing pairs come
+    out query-major, chunk-ascending: the order the reference walks
+    candidates."""
+    C = counts.shape[1]
+    ok = (counts >= min_count[:, None]) & (dcounts >= base_min[:, None]) \
+        & (min_count[:, None] > 0)
+    sel, n_ok = compact_indices(ok.reshape(-1))
+    mi = torch.div(sel, C, rounding_mode="floor")
+    ci = sel % C
+    if n_ok == 0:
+        W = (1 + 7 * top_k) if lean else (5 + 8 * top_k)
+        dev = counts.device
+        return (torch.empty((0, 3), dtype=torch.int32, device=dev),
+                torch.empty((0, W), dtype=torch.int16, device=dev))
+    dc = dcounts[mi, ci]
+    return _chain_pack_tail(mi, ci, dc, q_seeds, q_pos, base_min, q_len,
+                            t_seeds, t_pos, k=k, top_k=top_k, lean=lean)
+
+
+def _fused_map_c(q_pos, q_rb, q_db, min_count, base_min, q_len, q_seeds,
+                 membership, t_seeds, t_pos, *, k: int, top_k: int = 4,
+                 lean: bool = False):
+    """Retrieval + gate + chain + summary with the run/distinct bucket
+    arrays shipped from the host (rows whose seeds overflow ``nq``)."""
+    counts = _count_rows(membership, q_rb)
+    dcounts = _count_rows(membership, q_db)
+    return _map_from_counts(counts, dcounts, q_seeds, q_pos, min_count,
+                            base_min, q_len, t_seeds, t_pos, k=k,
+                            top_k=top_k, lean=lean)
+
+
+def _fused_map_d(q_pos, min_count, base_min, q_len, q_seeds, usable,
+                 membership, t_seeds, t_pos, *, k: int, top_k: int = 4,
+                 hashed: bool = False, lean: bool = False):
+    """``_fused_map_c`` with the run/distinct buckets derived on the
+    device from the seed ids (``_derive_buckets``): the standard map
+    path."""
+    q_rb, q_db = _derive_buckets(q_seeds, usable, membership.shape[0],
+                                 hashed)
+    counts, dcounts = _count_rows_pair(membership, q_rb, q_db)
+    return _map_from_counts(counts, dcounts, q_seeds, q_pos, min_count,
+                            base_min, q_len, t_seeds, t_pos, k=k,
+                            top_k=top_k, lean=lean)
+
+
+class MapEngine:
+    """Resident device index + one-dispatch query pipeline for the mapper
+    (flat gate).  ``routes`` counts the dispatches per fused path."""
+
+    STATE_KEYS = ("membership", "t_seeds", "t_pos", "usable_dev",
+                  "chunk_off", "chunk_inset", "chunk_len")
+
+    def __init__(self, index, k: int, nq: int = 64, nt: int = 320,
+                 mesh=None, hit_fraction: float = 0.25,
+                 lean: bool = False, binned: bool = False, device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "MapEngine(mesh=...) is not ported yet: ROADMAP.md, "
+                "'Multi-GPU'")
+        self.device = resolve_device(device)
+        self.index = index
+        self.k = k
+        # lean: pack only the mapper-walk summary columns (1 + 7K)
+        self.lean = lean
+        self.nq = nq
+        self.nt = nt
+        self.hit_fraction = hit_fraction
+        self.routes = Counter()
+        S = index.num_seeds
+        self.H = match_ops.choose_hash_size(S)
+        self.num_seeds = S
+        C = index.num_sequences
+        self.C = C
+        if binned and C >= _BINNED_MIN_C:
+            raise NotImplementedError(
+                f"{C} chunks engage the binned retrieval gate (>= "
+                f"{_BINNED_MIN_C}), which is not ported yet: ROADMAP.md, "
+                "'The binned gate'")
+        # the JAX engine's chunk-axis padding, kept so that the resident
+        # state (and chunk ids) equal the reference engine's
+        _grid = 128 if C <= 2048 else (1024 if C <= 16384 else 4096)
+        CP = max(128, ((C + _grid - 1) // _grid) * _grid)
+        derive_mem = max((s.num_seeds for s in index.sequences),
+                         default=0) <= nt
+        mem = None if derive_mem else np.zeros((self.H, CP), dtype=np.int8)
+        t_seeds = np.full((CP, nt), -1, np.int32)
+        t_pos = np.zeros((CP, nt), np.int32)
+        # chunk geometry for the vectorized candidate walk
+        self.chunk_off = np.zeros(CP, np.int64)
+        self.chunk_inset = np.zeros(CP, np.int64)
+        self.chunk_len = np.zeros(CP, np.int64)
+        for ci_, s in enumerate(index.sequences):
+            if mem is not None and s.seeds.size:
+                mem[match_ops.hash_ids(np.unique(s.seeds), S, self.H),
+                    ci_] = 1
+            m = min(s.num_seeds, nt)
+            t_seeds[ci_, :m] = s.seeds[:m]
+            t_pos[ci_, :m] = s.seed_positions(k)[:m]
+            self.chunk_off[ci_] = s.offset
+            self.chunk_inset[ci_] = s.inset
+            self.chunk_len[ci_] = s.length
+        dev = self.device
+        self.t_seeds = torch.from_numpy(t_seeds).to(dev)
+        self.t_pos = torch.from_numpy(t_pos).to(dev)
+        self._hashed = S > self.H
+        if derive_mem:
+            # every chunk's full seed list is resident: scatter on device
+            self.membership = _derive_membership(self.t_seeds, self.H,
+                                                 self._hashed)
+        else:
+            # truncated chunk(s): ship the exact matrix bit-packed
+            packed = torch.from_numpy(np.packbits(mem, axis=1)).to(dev)
+            self.membership = _unpack_membership(packed, mem.shape[1])
+        # "usable" per Matches: seeds present in every chunk carry no info
+        if index._seed_counts is None:
+            index.index_sequences()
+        self.usable = np.asarray(index._seed_counts) < max(1, C)
+        UL = (self.H if S <= self.H
+              else ((S + 4095) // 4096) * 4096)
+        up = np.zeros(UL, np.int8)
+        up[:S] = self.usable
+        self.usable_dev = torch.from_numpy(up).to(dev)
+
+    def load_state(self, arrays: dict):
+        """Install resident state taken from a JAX ``downpore_tpu``
+        MapEngine (``np.asarray`` of each ``STATE_KEYS`` field) on this
+        engine's device.  Shapes must match the ones this engine built
+        from its index."""
+        for key in self.STATE_KEYS:
+            if key not in arrays:
+                raise KeyError(f"load_state: missing {key!r}")
+            cur = getattr(self, key)
+            new = np.asarray(arrays[key])
+            if tuple(new.shape) != tuple(cur.shape):
+                raise ValueError(f"load_state: {key} has shape "
+                                 f"{new.shape}, engine has {tuple(cur.shape)}")
+            if torch.is_tensor(cur):
+                setattr(self, key, torch.tensor(new, dtype=cur.dtype,
+                                                device=self.device))
+            else:
+                setattr(self, key, new.astype(cur.dtype))
+        self.usable = np.asarray(arrays["usable_dev"])[:self.num_seeds] > 0
+        self._nat_tables = None
+
+    # -- batch-vectorized window packing (host) --------------------------
+    _NQS = 192  # seed-scan width: run-collapse is exact for windows with
+    # up to this many seeds; beyond it num_sets undercounts, which only
+    # lowers min_count (recall-safe, the chain DP is the filter)
+
+    def _pack_windows_native(self, windows: List, lens_b: np.ndarray):
+        """One-pass native packer (native/seqscan.cpp pack_windows): same
+        outputs as the numpy pipeline of ``pack_query_windows``.  None
+        when the toolchain is absent."""
+        from downpore_tpu import native
+        if native.load() is None or not len(windows):
+            return None
+        tabs = getattr(self, "_nat_tables", None)
+        if tabs is None:
+            tabs = (np.ascontiguousarray(self.index.kmer_table, np.uint8),
+                    np.ascontiguousarray(self.index.kmer_map, np.int32),
+                    np.ascontiguousarray(self.usable, np.uint8))
+            self._nat_tables = tabs
+        kt, km, us = tabs
+        off = np.zeros(len(windows), np.int64)
+        np.cumsum(lens_b[:-1], out=off[1:])
+        codes = np.empty(int(lens_b.sum()), np.uint8)
+        for i, w in enumerate(windows):
+            codes[off[i] : off[i] + lens_b[i]] = w.codes
+        return native.pack_windows(codes, off, lens_b, self.k, self.nq,
+                                   self._NQS, kt, km, us, self.num_seeds,
+                                   self.H)
+
+    def pack_query_windows(self, windows: List) -> tuple:
+        """Seed features of plain sequence windows, forward and reverse
+        complement rows interleaved ([2i] = fw of window i, [2i+1] = rc).
+        Returns ``(q_seeds, q_pos, q_rb, q_db, num_sets, q_len,
+        num_seeds)``: the query features plus the exact per-row
+        extracted-seed counts (ref: mapping/mapping.go:497-505)."""
+        index = self.index
+        k = self.k
+        nq = self.nq
+        M = len(windows)
+        lens_b = np.array([len(w) for w in windows], np.int64)
+
+        native_out = self._pack_windows_native(windows, lens_b)
+        if native_out is not None:
+            q_seeds, q_pos, q_rb, q_db, num_sets, num_seeds = native_out
+            q_len = np.repeat(lens_b, 2).astype(np.int32)
+            return (q_seeds, q_pos, q_rb, q_db, num_sets, q_len,
+                    num_seeds)
+
+        L = max(int(lens_b.max()) if M else k, k)
+        W = L - k + 1
+        # forward and RC code rows interleaved, so one rolling-kmer pass
+        # covers both orientations (complement of a 2-bit code = ^3)
+        codes = np.zeros((2 * M, L), np.uint8)
+        for i, w in enumerate(windows):
+            n = lens_b[i]
+            codes[2 * i, :n] = w.codes
+            codes[2 * i + 1, :n] = w.codes[::-1]
+            codes[2 * i + 1, :n] ^= 3
+        lens_k = np.maximum(0, lens_b - k + 1)
+        km2 = np.zeros((2 * M, W), np.int32)
+        for j in range(k):
+            km2 <<= 2
+            km2 |= codes[:, j : j + W]
+        cols = np.arange(W)[None, :]
+        lens2 = np.repeat(lens_k, 2)
+        q_len = np.repeat(lens_b, 2).astype(np.int32)
+        valid = cols < lens2[:, None]
+        flag = valid & index.kmer_table[km2]
+        num_seeds = flag.sum(1).astype(np.int64)
+
+        # compact the first _NQS flagged positions per row (order kept)
+        NQS = self._NQS
+        dest = np.cumsum(flag, axis=1, dtype=np.int32) - 1
+        rows, colsnz = np.nonzero(flag & (dest < NQS))
+        d = dest[rows, colsnz]
+        pos_c = np.zeros((2 * M, NQS), np.int32)
+        km_c = np.zeros((2 * M, NQS), np.int32)
+        pos_c[rows, d] = colsnz
+        km_c[rows, d] = km2[rows, colsnz]
+        live_c = np.arange(NQS)[None, :] < np.minimum(num_seeds,
+                                                      NQS)[:, None]
+        seeds_c = np.where(live_c, index.kmer_map[km_c], -1)
+
+        q_seeds = seeds_c[:, :nq].astype(np.int32)
+        q_pos = np.where(live_c[:, :nq], pos_c[:, :nq], 0).astype(np.int32)
+
+        # run-collapse over usable seeds (SeedIndex.matches semantics,
+        # ref: seeds/seeds.go:335-353); num_sets = exact run count
+        us = live_c & self.usable[np.clip(seeds_c, 0, None)] & \
+            (seeds_c >= 0)
+        slot = np.arange(NQS)[None, :]
+        idxs = np.where(us, slot, -1)
+        pa = np.maximum.accumulate(idxs, axis=1)
+        prev = np.empty_like(pa)
+        prev[:, 0] = -1
+        prev[:, 1:] = pa[:, :-1]
+        pv = np.take_along_axis(seeds_c, np.clip(prev, 0, None), 1)
+        pv = np.where(prev >= 0, pv, -2)
+        run_start = us & (pv != seeds_c)
+        num_sets = run_start.sum(1).astype(np.int32)
+
+        rdest = np.cumsum(run_start, axis=1) - 1
+        rrows, rcols = np.nonzero(run_start & (rdest < nq))
+        rd = rdest[rrows, rcols]
+        run_seeds = np.full((2 * M, nq), -1, np.int64)
+        run_seeds[rrows, rd] = seeds_c[rrows, rcols]
+        rb_live = run_seeds >= 0
+        q_rb = np.where(
+            rb_live,
+            match_ops.hash_ids(np.clip(run_seeds, 0, None),
+                               self.num_seeds, self.H), -1).astype(np.int32)
+        # distinct buckets: row-sorted unique (-1 marks dead slots)
+        BIG = 1 << 30
+        srt = np.sort(np.where(q_rb >= 0, q_rb, BIG), axis=1)
+        first = np.empty_like(srt, dtype=bool)
+        first[:, 0] = True
+        first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+        q_db = np.where(first & (srt < BIG), srt, -1).astype(np.int32)
+        return q_seeds, q_pos, q_rb, q_db, num_sets, q_len, num_seeds
+
+    # -- dispatch / collect ---------------------------------------------
+    def dispatch_packed(self, packed: tuple, base_min: np.ndarray,
+                        top_k: int = 4, min_sets: int = 5):
+        """Run the fused pipeline on a prepacked query-feature tuple
+        (``pack_query_windows``).  Returns ``(M,
+        (head, packed16))`` with the result on the device, or ``(0,
+        None)`` for an empty batch or index."""
+        q_seeds, q_pos, q_rb, q_db, num_sets, q_len = packed[:6]
+        M = q_seeds.shape[0]
+        if M == 0 or self.C == 0:
+            return (0, None)
+        # right-size the seed axis: halve it when every row's live seeds
+        # fit half the width (anchors = 2 * nq_eff per pair)
+        nq_full = self.nq
+        max_live = int((q_seeds >= 0).sum(axis=1).max(initial=1))
+        nq_eff = nq_full if max_live > nq_full // 2 else nq_full // 2
+        if nq_eff < nq_full:
+            q_seeds = q_seeds[:, :nq_eff]
+            q_pos = q_pos[:, :nq_eff]
+            q_rb = q_rb[:, :nq_eff]
+            q_db = q_db[:, :nq_eff]
+        # min_count per Matches: round(hit_fraction * num_sets); queries
+        # with too few usable seeds get no candidates (min_count = 0
+        # never passes the > 0 check)
+        min_count = (self.hit_fraction * num_sets.astype(np.int64)
+                     + 0.5).astype(np.int64)
+        min_count[num_sets < min_sets] = 0
+        base_min = np.minimum(np.asarray(base_min), 1 << 14)
+
+        dev = self.device
+        put = lambda a: torch.from_numpy(
+            np.ascontiguousarray(a, np.int32)).to(dev)
+        args = dict(q_pos=put(q_pos), min_count=put(min_count),
+                    base_min=put(base_min), q_len=put(q_len),
+                    q_seeds=put(q_seeds), membership=self.membership,
+                    t_seeds=self.t_seeds, t_pos=self.t_pos, k=self.k,
+                    top_k=top_k, lean=self.lean)
+        # buckets are a pure function of (q_seeds, usable) whenever every
+        # extracted seed of every row fits the shipped width
+        num_seeds_arr = packed[6] if len(packed) > 6 else None
+        nq = q_seeds.shape[1]
+        if (num_seeds_arr is not None
+                and int(np.max(num_seeds_arr, initial=0)) <= nq):
+            self.routes["_fused_map_d"] += 1
+            res = _fused_map_d(usable=self.usable_dev, hashed=self._hashed,
+                               **args)
+        else:
+            self.routes["_fused_map_c"] += 1
+            res = _fused_map_c(q_rb=put(q_rb), q_db=put(q_db), **args)
+        return (M, res)
+
+    def collect_arrays_many(self, futs_list):
+        """Host arrays of several dispatches: per dispatch ``(head [N, 3]
+        int32 (query row, chunk, distinct count), summary [N, W] int32)``
+        ordered query-major / chunk-ascending (the reference's candidate
+        walk order), or None for an empty dispatch."""
+        out = []
+        for _, res in futs_list:
+            if res is None:
+                out.append(None)
+                continue
+            head, packed = res
+            out.append((head.cpu().numpy(),
+                        packed.cpu().numpy().astype(np.int32)))
+        return out

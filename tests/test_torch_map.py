@@ -1,0 +1,242 @@
+"""End-to-end parity of the torch port's ``map`` slice with the JAX
+package, on the CPU: ``Mapper.map_batch`` on test_mapping.py's read cases,
+and the ``map`` CLI on test_cli_golden.py's fixture.  Mappings must have
+identical fields and the CLI's stdout must be byte-identical (tolerance 0).
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from downpore_tpu.cli.main import main as jax_main
+from downpore_tpu.core import Sequence
+from downpore_tpu.mapping import Mapper as JaxMapper
+from downpore_tpu.utils.kmers import kmer_occurrences, score_seed_values
+import downpore_tpu_torch
+from downpore_tpu_torch.cli.main import main as torch_main
+from downpore_tpu_torch.mapping import Mapper as TorchMapper
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BASES = "ACGT"
+K = 11
+
+
+def rand_bases(n, rng):
+    return "".join(BASES[i] for i in rng.integers(0, 4, n))
+
+
+def mutate_codes(codes, rate, rng):
+    codes = codes.copy()
+    mask = rng.random(len(codes)) < rate
+    codes[mask] = (codes[mask] + rng.integers(1, 4, mask.sum())) % 4
+    return codes
+
+
+@pytest.fixture(scope="module")
+def mappers():
+    rng = np.random.default_rng(42)
+    genome = Sequence.from_string(rand_bases(60000, rng), id=0, name="chr")
+    values = score_seed_values(kmer_occurrences([genome], K), K)
+    args = (genome, False, K, values, 40, 1000, 10000)
+    return genome, JaxMapper(*args), TorchMapper(*args, device="cpu")
+
+
+def make_read(case, genome):
+    """The read cases of test_mapping.py:42-133."""
+    rng = np.random.default_rng(7)
+    g = genome.codes
+    if case == "exact":
+        return Sequence(g[20000:24000].copy(), id=1, name="r")
+    if case == "noisy":
+        return Sequence(mutate_codes(g[5000:9000], 0.08, rng), id=2,
+                        name="noisy")
+    if case == "rc":
+        read = Sequence(g[30000:34000].copy(), id=3,
+                        name="rcread").reverse_complement()
+        read.offset = read.inset = 0
+        return read
+    if case == "short":
+        return Sequence(g[10000:11500].copy(), id=4, name="short")
+    if case == "chimeric":
+        return Sequence(np.concatenate([g[2000:6000], g[40000:44000]]),
+                        id=5, name="chimera")
+    assert case == "unmappable"
+    return Sequence.from_string(rand_bases(3000, np.random.default_rng(99)),
+                                id=6, name="junk")
+
+
+def fields(maps):
+    return [(m.start, m.end, m.query_offset, m.query_inset, m.rc, m.ids)
+            for m in maps]
+
+
+@pytest.mark.parametrize("case", ["exact", "noisy", "rc", "short",
+                                  "chimeric", "unmappable"])
+def test_map_batch_matches_jax(mappers, case):
+    genome, jm, tm = mappers
+    read = make_read(case, genome)
+    ref = jm.map_batch([read])[0]
+    got = tm.map_batch([read])[0]
+    assert fields(got) == fields(ref)
+    assert [jm.as_string(m) for m in ref] == [tm.as_string(m) for m in got]
+    if case == "unmappable":
+        assert got == []
+    else:
+        assert got
+
+
+def test_map_batch_many_reads_matches_jax(mappers):
+    genome, jm, tm = mappers
+    rng = np.random.default_rng(77)
+    reads = []
+    for i in range(16):
+        start = int(rng.integers(0, 55000))
+        ln = int(rng.integers(1500, 5000))
+        codes = mutate_codes(genome.codes[start:start + ln], 0.08, rng)
+        read = Sequence(codes, id=i, name=f"m{i}")
+        if i % 2:
+            read = read.reverse_complement()
+            read.offset = read.inset = 0
+        reads.append(read)
+    ref = [fields(ms) for ms in jm.map_batch(reads)]
+    got = [fields(ms) for ms in tm.map_batch(reads)]
+    assert got == ref
+    assert sum(1 for ms in got if ms) >= 14
+
+
+_RC = str.maketrans("ACGT", "TGCA")
+
+
+def _cli_mutate(rng, s, rate):
+    out = []
+    for c in s:
+        r = rng.random()
+        if r < rate * 0.5:
+            continue
+        if r < rate * 0.75:
+            out.append(BASES[rng.integers(0, 4)])
+        elif r < rate:
+            out.append(c)
+            out.append(BASES[rng.integers(0, 4)])
+        else:
+            out.append(c)
+    return "".join(out)
+
+
+@pytest.fixture(scope="module")
+def cli_fixture(tmp_path_factory):
+    """The map fixture of test_cli_golden.py:49-91."""
+    d = tmp_path_factory.mktemp("torch_cli")
+    genome = rand_bases(30000, np.random.default_rng(11))
+    gpath = d / "genome.fasta"
+    gpath.write_text(f">genome\n{genome}\n")
+    rng = np.random.default_rng(12)
+    rpath = d / "reads.fasta"
+    with open(rpath, "w") as f:
+        for i in range(24):
+            pos = int(rng.integers(0, len(genome) - 2000))
+            s = _cli_mutate(rng, genome[pos:pos + 2000], 0.03)
+            if i % 3 == 2:
+                s = s.translate(_RC)[::-1]
+            f.write(f">r{i}\n{s}\n")
+    return ["map", "-input", str(rpath), "-reference", str(gpath),
+            "-circular", "false"]
+
+
+def test_map_cli_matches_jax(capsys, monkeypatch, cli_fixture):
+    monkeypatch.setenv(downpore_tpu_torch.DEVICE_ENV, "cpu")
+    jax_main(cli_fixture)
+    ref = capsys.readouterr()
+    torch_main(cli_fixture)
+    got = capsys.readouterr()
+    assert got.out == ref.out
+    assert got.err == ref.err
+    assert len(got.out.splitlines()) >= 24
+
+
+def test_help_map_matches_jax(capsys):
+    jax_main(["help", "map"])
+    ref = capsys.readouterr().out
+    torch_main(["help", "map"])
+    assert capsys.readouterr().out == ref
+    assert "-data_parallel" in ref
+
+
+def test_map_without_jax_subprocess(capsys, monkeypatch, cli_fixture):
+    """The port runs with jax blocked from import: sys.modules["jax"] =
+    None makes any ``import jax`` raise."""
+    monkeypatch.setenv(downpore_tpu_torch.DEVICE_ENV, "cpu")
+    torch_main(cli_fixture)
+    expect = capsys.readouterr().out
+    code = ("import sys; sys.modules['jax'] = None; "
+            "import torch; torch.set_num_threads(2); "
+            "from downpore_tpu_torch.cli.main import main; "
+            f"main({cli_fixture!r}); "
+            "assert not any(m == 'jax' or m.startswith('jax.') "
+            "for m, v in sys.modules.items() if v is not None)")
+    env = dict(os.environ, DOWNPORE_TORCH_DEVICE="cpu",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=REPO, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout == expect
+
+
+def test_map_cli_rejects_multi_device(monkeypatch, cli_fixture):
+    monkeypatch.setenv(downpore_tpu_torch.DEVICE_ENV, "cpu")
+    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+        torch_main(cli_fixture + ["-data_parallel", "true"])
+    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+        torch_main(cli_fixture + ["-seed_shards", "2"])
+
+
+def test_resolve_device_never_falls_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv(downpore_tpu_torch.DEVICE_ENV, "cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        downpore_tpu_torch.resolve_device()
+    with pytest.raises(RuntimeError):
+        downpore_tpu_torch.resolve_device("cuda:0")
+    monkeypatch.setenv(downpore_tpu_torch.DEVICE_ENV, "cpu")
+    assert downpore_tpu_torch.resolve_device().type == "cpu"
+    monkeypatch.delenv(downpore_tpu_torch.DEVICE_ENV)
+    with pytest.raises(RuntimeError):
+        downpore_tpu_torch.resolve_device()
+
+
+def _load_chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_imports_only_the_port():
+    """The smoke script reaches the host helpers through the port's
+    re-exports, never through the JAX package or jax itself."""
+    from downpore_tpu_torch.core import Sequence as PortSequence
+    from downpore_tpu_torch.utils import kmer_occurrences as port_occ
+    names = _load_chip_smoke().own_imports()
+    assert "downpore_tpu_torch" in names
+    assert not names & {"jax", "jaxlib", "downpore_tpu"}
+    assert PortSequence is Sequence and port_occ is kmer_occurrences
+
+
+def test_chip_smoke_without_a_card_fails_without_result():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    proc = subprocess.run([sys.executable, "chip_smoke.py"],
+                          capture_output=True, text=True, env=env, cwd=REPO,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    assert "needs one CUDA card" in proc.stderr
