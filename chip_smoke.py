@@ -1,16 +1,26 @@
-"""Smoke run of the torch port's map path on one CUDA card.
+"""Smoke run of the torch port's map and correct paths on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases (any failure ends the run with a non-zero exit):
 
 1. device: the card's name and power limit (nvidia-smi), CUDA version,
-   and the chain kernel's build from ``downpore_tpu_torch/csrc``;
-2. kernel vs plain: ``cuda_chain.chain_scan`` on the card must equal
+   and the build of the three kernels from ``downpore_tpu_torch/csrc``
+   (one nvcc per source, all started together);
+2. kernels vs plain versions, on card tensors, each timed against its
+   plain version:
+   ``cuda_chain.chain_scan`` must equal
    ``chain_scan_plain`` on the same card tensors exactly, P = 4096 pairs at
    A in {64, 128, 384}, both gap-window variants, plus the backward pass's
    negated coordinates; both are timed at P = 4096, A = 128;
-3. the slice at E. coli scale: a synthetic 4.6 Mb genome (k = 11, seed
+   ``cuda_band.update_bands`` must equal ``update_bands_plain`` at
+   B = 65,536 bands x 32 (test_align.py's recipe);
+   ``cuda_beam.beam_consensus`` must equal ``beam_consensus_plain`` on
+   chains and n_valid at bench.py's consensus shape (1024 jobs x 6
+   members x 500-base cores at 8% substitutions, k = 5, simple-k
+   measure: the [1024, 8, 512] bucket), and again with the table measure
+   on a 64-job subset;
+3. the map slice at E. coli scale: a synthetic 4.6 Mb genome (k = 11, seed
    rate 40, 10 kb chunks, 1 kb edges), 8192 reads of 6-10 kb at 8%
    substitutions, half reverse-complemented; ``Mapper.map_batch`` on the
    card, timed over three passes after one warm-up pass, with the chain
@@ -21,7 +31,20 @@ Phases (any failure ends the run with a non-zero exit):
    per-stage host and device times; tables in
    ``chiprun_out/profile_map.txt``);
 4. card vs CPU: the first 256 reads mapped on the card and on the CPU
-   (plain torch versions) give byte-identical PAF lines.
+   (plain torch versions) give byte-identical PAF lines;
+5. the correct slice: ``correct`` through the port's CLI on a synthetic
+   1 Mb genome with 2048 reads of 5-10 kb at 3% error (~15x coverage):
+   wall time split into overlap rounds, consensus and the rest, kernel
+   launch counts of the run (the beam kernel's must be > 0), every
+   kernel launch of the run held against its plain version on a copy of
+   the same card tensors (exact), and the consensus sequences checked
+   against the genome (15-mer containment); then two more runs on the
+   same reads, one under ``torch.profiler`` (device busy time and idle
+   share) and one under ``cProfile`` (host time by function; table in
+   ``chiprun_out/profile_correct.txt``);
+6. card vs CPU: ``correct`` on test_cli_golden.py's 48-read overlap
+   recipe gives byte-identical fasta on the card and on the CPU, with the
+   simple-k measure and with a ``-model`` table measure.
 
 It prints the kernel table as one JSON line, the nvidia-smi line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a usable CUDA
@@ -36,6 +59,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -351,6 +375,427 @@ def phase_card_vs_cpu(mapper, reads):
         raise SystemExit("PAF on the card differs from PAF on the CPU")
 
 
+B_BAND = 65536
+
+
+def phase_band(dev):
+    """Band kernel vs plain at B_BAND x 32 (test_align.py's recipe)."""
+    from downpore_tpu_torch.ops import cuda_band
+    rng = np.random.default_rng(21)
+    ds = rng.integers(0, 40, (B_BAND, 32)).astype(np.int32)
+    poffs = rng.integers(0, 500, (B_BAND, 32)).astype(np.int32)
+    poffs[rng.random(poffs.shape) < 0.25] = cuda_band.BAND_FULL
+    ds, poffs = (torch.from_numpy(a).to(dev) for a in (ds, poffs))
+    out, m = cuda_band.update_bands(ds, poffs, 300)
+    ref_out, ref_m = cuda_band.update_bands_plain(ds, poffs, 300)
+    torch.cuda.synchronize()
+    err = max(int((out - ref_out).abs().max()), int((m - ref_m).abs().max()))
+    ms = cuda_ms(lambda: cuda_band.update_bands(ds, poffs, 300), 50)
+    plain_ms = cuda_ms(lambda: cuda_band.update_bands_plain(ds, poffs, 300),
+                       10)
+    log(f"update_bands B={B_BAND} W=32: max_abs_err={err}; kernel "
+        f"{ms:.4f} ms, plain torch {plain_ms:.4f} ms")
+    if err != 0:
+        raise SystemExit("update_bands differs from its plain version")
+    return err, ms, plain_ms
+
+
+def consensus_jobs(rng, n_jobs: int, n_members: int = 6,
+                   core_len: int = 500, k: int = 5, err: float = 0.08):
+    """bench.py's consensus jobs: k-mer arrays of ``n_members`` copies of a
+    random core at ``err`` substitutions."""
+    jobs = []
+    for _ in range(n_jobs):
+        core = rng.integers(0, 4, core_len + k - 1)
+        members = []
+        for _ in range(n_members):
+            codes = core.copy()
+            m = rng.random(len(codes)) < err
+            codes[m] = rng.integers(0, 4, int(m.sum()))
+            km = np.zeros(len(codes) - k + 1, np.int64)
+            for j in range(k):
+                km = (km << 2) | codes[j:j + len(km)]
+            members.append(km.astype(np.int32))
+        jobs.append(members)
+    return jobs
+
+
+def phase_beam(dev):
+    """Beam kernel vs plain on chains and n_valid: the bench bucket with
+    the simple-k measure, and a 64-job subset with the table measure."""
+    from downpore_tpu_torch.ops import cuda_beam, dtw
+    k, beam, thr, gap = 5, 4, 200, 5
+    jobs = consensus_jobs(np.random.default_rng(SEED + 30), 1024)
+    N, L = 8, 512                     # consensus_kmers_bulk's bucket
+    seqs = np.empty((len(jobs), N, L), np.int32)
+    lens = np.empty((len(jobs), N), np.int32)
+    firsts = np.empty(len(jobs), np.int32)
+    for i, job in enumerate(jobs):
+        seqs[i], lens[i], firsts[i] = dtw._pad_job(job, N, L)
+    t_max = dtw._t_max(L)
+    seqs, lens, firsts = (torch.from_numpy(a).to(dev)
+                          for a in (seqs, lens, firsts))
+    size = 4 ** k
+    ar = torch.arange(size, dtype=torch.int32, device=dev)
+    table = dtw._simple_distance(ar[:, None], ar[None, :], k).to(
+        torch.int16).contiguous()
+    max_err = 0
+    times = {}
+    for name, sl, tab, sk in (("simple", slice(None), None, k),
+                              ("table", slice(0, 64), table, 0)):
+        args = (seqs[sl].contiguous(), lens[sl].contiguous(),
+                firsts[sl].contiguous(), tab, k, beam, t_max, thr, gap, sk)
+        got = cuda_beam.beam_consensus(*args)
+        ref = cuda_beam.beam_consensus_plain(*args)
+        torch.cuda.synchronize()
+        err = max(int((g - r).abs().max()) for g, r in zip(got, ref))
+        ms = cuda_ms(lambda: cuda_beam.beam_consensus(*args), 5)
+        plain_ms = cuda_ms(lambda: cuda_beam.beam_consensus_plain(*args), 1)
+        times[name] = (ms, plain_ms)
+        J = args[0].shape[0]
+        log(f"beam_consensus {name} measure, {J} jobs x {N} members x "
+            f"L={L}, t_max={t_max}: max_abs_err={err} (chains, n_valid); "
+            f"mean n_valid {got[1].float().mean().item():.1f}; kernel "
+            f"{ms:.3f} ms, plain torch {plain_ms:.3f} ms")
+        if err != 0:
+            raise SystemExit(f"beam_consensus ({name}) differs from its "
+                             "plain version")
+        max_err = max(max_err, err)
+        if name == "simple":
+            simple = got
+    # the table is the simple measure's: both measures agree on the subset
+    if not (torch.equal(got[0], simple[0][:64])
+            and torch.equal(got[1], simple[1][:64])):
+        raise SystemExit("table and simple-k measures disagree")
+    return max_err, times["simple"]
+
+
+def mutate_fast(rng, arr, rate: float):
+    """test_cli_golden.py's error model, vectorized: at ``rate``, half
+    deletions, a quarter mismatches, a quarter insertions after the
+    base."""
+    r = rng.random(len(arr))
+    dele = r < rate * 0.5
+    mis = (r >= rate * 0.5) & (r < rate * 0.75)
+    ins = (r >= rate * 0.75) & (r < rate)
+    out = arr.copy()
+    out[mis] = BASES[rng.integers(0, 4, int(mis.sum()))]
+    reps = np.where(dele, 0, np.where(ins, 2, 1))
+    res = out[np.repeat(np.arange(len(arr)), reps)]
+    first = np.cumsum(reps) - reps
+    res[first[ins] + 1] = BASES[rng.integers(0, 4, int(ins.sum()))]
+    return res
+
+
+CORRECT_GENOME = 1_000_000
+CORRECT_READS = 2048
+CORRECT_ERR = 0.03
+CONTAIN_K = 15
+CONTAIN_MIN = 0.8
+
+
+def correct_case():
+    """Genome and reads for the correct phase: reads of 5-10 kb at random
+    positions with CORRECT_ERR errors, odd reads reverse-complemented."""
+    rng = np.random.default_rng(SEED + 40)
+    genome = BASES[rng.integers(0, 4, CORRECT_GENOME)]
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    records = []
+    for i in range(CORRECT_READS):
+        L = int(rng.integers(5000, 10_000))
+        p = int(rng.integers(0, CORRECT_GENOME - L))
+        s = mutate_fast(rng, genome[p:p + L], CORRECT_ERR).tobytes()
+        if i % 2:
+            s = s.translate(comp)[::-1]
+        records.append((f"c{i}.{p}", s.decode()))
+    return genome, records
+
+
+def golden_overlap_records():
+    """test_cli_golden.py's 48-read overlap fixture (seed 22): reads of
+    2.5-5 kb from a 40 kb genome at ~2% error."""
+    rng = np.random.default_rng(22)
+    letters, rate = "ACGT", 0.02
+    genome = "".join(letters[i] for i in rng.integers(0, 4, 40000))
+    records = []
+    for i in range(48):
+        L = int(rng.integers(2500, 5000))
+        pos = int(rng.integers(0, 40000 - L))
+        out = []
+        for c in genome[pos:pos + L]:
+            r = rng.random()
+            if r < rate * 0.5:
+                continue
+            if r < rate * 0.75:
+                out.append(letters[rng.integers(0, 4)])
+            elif r < rate:
+                out.append(c)
+                out.append(letters[rng.integers(0, 4)])
+            else:
+                out.append(c)
+        records.append((f"cr{i}.{pos}.{pos + L}", "".join(out)))
+    return records
+
+
+def write_model(path: str, k: int = 5):
+    """A current-level model file (k-mer, level per line) with seeded
+    random levels: the ``-model`` table measure's input."""
+    rng = np.random.default_rng(8)
+    with open(path, "w") as f:
+        for v in range(4 ** k):
+            km = "".join("ACGT"[(v >> (2 * (k - 1 - i))) & 3]
+                         for i in range(k))
+            f.write(f"{km}\t{rng.uniform(60.0, 120.0):.3f}\n")
+
+
+def run_correct(records, device: str, model: bool = False):
+    """``correct -input reads.fa`` through the port's CLI on ``device``
+    (with ``-model`` and a ``write_model`` file when ``model``); returns
+    (stdout, stderr)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from downpore_tpu_torch import DEVICE_ENV
+    from downpore_tpu_torch.cli.main import main as cli_main
+    old = os.environ.get(DEVICE_ENV)
+    os.environ[DEVICE_ENV] = device
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "reads.fasta")
+            with open(path, "w") as f:
+                f.writelines(f">{n}\n{s}\n" for n, s in records)
+            argv = ["correct", "-input", path]
+            if model:
+                argv += ["-model", os.path.join(d, "model.txt")]
+                write_model(argv[-1])
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                cli_main(argv)
+    finally:
+        if old is None:
+            del os.environ[DEVICE_ENV]
+        else:
+            os.environ[DEVICE_ENV] = old
+    return out.getvalue(), err.getvalue()
+
+
+def _kmer_codes(seq: np.ndarray, k: int) -> np.ndarray:
+    """2-bit packed k-mers of an ASCII ACGT array."""
+    codes = np.searchsorted(BASES, seq).astype(np.int64)
+    n = len(codes) - k + 1
+    km = np.zeros(max(n, 0), np.int64)
+    for j in range(k):
+        km = (km << 2) | codes[j:j + n]
+    return km
+
+
+def containment(seqs, genome) -> list:
+    """Per sequence, the share of its CONTAIN_K-mers found in the genome
+    or its reverse complement."""
+    rc = BASES[3 - np.searchsorted(BASES, genome)][::-1]
+    ref = np.unique(np.concatenate([_kmer_codes(genome, CONTAIN_K),
+                                    _kmer_codes(rc, CONTAIN_K)]))
+    out = []
+    for s in seqs:
+        km = _kmer_codes(np.frombuffer(s.encode(), np.uint8), CONTAIN_K)
+        out.append(float(np.isin(km, ref).mean()) if len(km) else 0.0)
+    return out
+
+
+def recording(launch, plain, calls: list):
+    """``launch`` (a kernel wrapper's ``_launch``) that also keeps a copy
+    of each launch's card inputs and outputs in ``calls``, to be held
+    against ``plain`` after the run."""
+    def wrapper(*a):
+        saved = [x.clone() if torch.is_tensor(x) else x for x in a]
+        out = launch(*a)
+        if saved[0].numel():
+            outs = out if isinstance(out, tuple) else (out,)
+            calls.append((plain, saved, [o.clone() for o in outs]))
+        return out
+    return wrapper
+
+
+def check_recorded(calls) -> dict:
+    """Max abs error per kernel of the recorded launches against their
+    plain versions on the same card tensors; fails on any difference."""
+    errs = {}
+    for plain, args, outs in calls:
+        ref = plain(*args)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        err = max(int((g - r).abs().max()) for g, r in zip(outs, ref))
+        name = plain.__name__.removesuffix("_plain")
+        errs[name] = max(errs.get(name, 0), err)
+        scalars = [a for a in args if not torch.is_tensor(a) and a is not None]
+        log(f"  {name} {list(args[0].shape)} {scalars}: max_abs_err={err}")
+        if err != 0:
+            raise SystemExit(f"{name} differs from its plain version at a "
+                             f"shape of the correct path")
+    return errs
+
+
+def phase_correct(dev):
+    """The port's correct on the card at CORRECT_READS reads; returns the
+    case's records, the kernel launch counts of the run and the max abs
+    error of its launches against the plain versions."""
+    from downpore_tpu_torch import consensus as cons_mod
+    from downpore_tpu_torch.ops import cuda_band, cuda_beam, cuda_chain
+    from downpore_tpu_torch.overlap import Overlapper
+
+    t0 = time.perf_counter()
+    genome, records = correct_case()
+    bases = sum(len(s) for _, s in records)
+    log(f"correct case: {CORRECT_GENOME} b genome, {len(records)} reads, "
+        f"{bases} bases ({bases / CORRECT_GENOME:.1f}x), generated in "
+        f"{time.perf_counter() - t0:.1f} s")
+    spent = {"overlap": 0.0, "consensus": 0.0}
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                sync(dev)
+                spent[key] += time.perf_counter() - t
+        return wrapper
+
+    patched = [(Overlapper, n, "overlap") for n in
+               ("prepare_queries", "add_sequences", "find_overlaps")]
+    patched.append((cons_mod, "build_consensus_bulk", "consensus"))
+    saved = [(owner, n, owner.__dict__.get(n)) for owner, n, _ in patched]
+    for owner, n, key in patched:
+        setattr(owner, n, timed(getattr(owner, n), key))
+    kernels = (cuda_chain.chain_scan, cuda_band.update_bands,
+               cuda_beam.beam_consensus)
+    calls = []
+    for mod, plain in ((cuda_chain, cuda_chain.chain_scan_plain),
+                       (cuda_beam, cuda_beam.beam_consensus_plain)):
+        saved.append((mod, "_launch", mod._launch))
+        mod._launch = recording(mod._launch, plain, calls)
+    try:
+        for kern in kernels:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        out, err = run_correct(records, dev.type)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launches = {kern.__name__: kern.launches for kern in kernels}
+    finally:
+        for owner, n, fn in saved:
+            if fn is None:
+                delattr(owner, n)          # inherited: unshadow it
+            else:
+                setattr(owner, n, fn)
+    lines = out.splitlines()
+    names = [ln[1:] for ln in lines if ln.startswith(">")]
+    seqs = [ln for ln in lines if ln and not ln.startswith(">")]
+    other = wall - spent["overlap"] - spent["consensus"]
+    log(f"correct on {dev.type} (first run, imports included): wall "
+        f"{wall:.3f} s = overlap rounds {spent['overlap']:.3f} s + "
+        f"consensus {spent['consensus']:.3f} s + the rest {other:.3f} s; "
+        f"kernel launches {launches}; {len(names)} consensus sequences, "
+        f"{sum(len(x) for x in seqs)} bases")
+    log("correct stderr: " + " | ".join(err.strip().splitlines()[:8]))
+    if launches["beam_consensus"] <= 0:
+        raise SystemExit("the correct path launched no beam_consensus "
+                         "kernel")
+    if launches["chain_scan"] <= 0:
+        raise SystemExit("the correct path launched no chain_scan kernel")
+    if not names or len(names) != len(seqs) \
+            or any(set(x) - set("ACGT") or len(x) <= 300 for x in seqs):
+        raise SystemExit("correct gave no well-formed consensus sequences")
+    cont = containment(seqs, genome)
+    log(f"consensus {CONTAIN_K}-mers found in the genome: "
+        + ", ".join(f"{c:.4f}" for c in cont))
+    if min(cont) < CONTAIN_MIN:
+        raise SystemExit(f"a consensus sequence shares < {CONTAIN_MIN} of "
+                         f"its {CONTAIN_K}-mers with the genome")
+    log(f"the run's {len(calls)} kernel launches against their plain "
+        f"versions:")
+    errs = check_recorded(calls)
+    if set(errs) != {"chain_scan", "beam_consensus"}:
+        raise SystemExit(f"recorded launches of {sorted(errs)} only")
+    return records, launches, errs
+
+
+PROFILE_CORRECT_OUT = "chiprun_out/profile_correct.txt"
+
+
+def profile_correct(records, dev, out_path=PROFILE_CORRECT_OUT, top=20):
+    """Two more (warm) runs of ``correct`` on ``records``: one under
+    ``torch.profiler`` for the device's busy time (union of its kernel,
+    copy and set spans) and idle share, one under ``cProfile`` for the
+    host time by function of both packages, cumulative (a function's time
+    includes its callees').  Prints both; writes the cProfile table to
+    ``out_path``."""
+    import cProfile
+    import io
+    import os
+    import pstats
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_correct(records, dev.type)
+        sync(dev)
+        wall = time.perf_counter() - t0
+    work = [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    busy_ms = _busy_us((e.time_range.start, e.time_range.end)
+                       for e in work) / 1e3
+    log(f"correct under torch.profiler: wall {wall * 1e3:.3f} ms; device "
+        f"busy {busy_ms:.3f} ms ({len(work)} device events), idle share "
+        f"{1 - busy_ms / (wall * 1e3):.4f}")
+
+    pr = cProfile.Profile()
+    t0 = time.perf_counter()
+    pr.enable()
+    run_correct(records, dev.type)
+    sync(dev)
+    pr.disable()
+    wall = time.perf_counter() - t0
+    rows = sorted(((ct, f"{file[file.rfind('downpore_tpu'):]}:{line}({fn})")
+                   for (file, line, fn), (_, _, _, ct, _)
+                   in pstats.Stats(pr).stats.items()
+                   if "downpore_tpu" in file), reverse=True)
+    log(f"correct under cProfile: wall {wall * 1e3:.3f} ms; cumulative host "
+        f"ms of the top {top} functions of the two packages:")
+    for ct, where in rows[:top]:
+        log(f"  {ct * 1e3:10.3f}  {where}")
+    buf = io.StringIO()
+    pstats.Stats(pr, stream=buf).sort_stats("cumulative").print_stats(80)
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    with open(out_path, "w") as f:
+        f.write(buf.getvalue())
+    log(f"cProfile table written to {out_path}")
+
+
+def phase_correct_card_vs_cpu():
+    """``correct`` on the card and on the CPU, with the simple-k measure
+    and with a ``-model`` table measure: byte-identical fasta."""
+    from downpore_tpu_torch.ops import cuda_beam
+    records = golden_overlap_records()
+    for model in (False, True):
+        before = cuda_beam.beam_consensus.launches
+        on_card, _ = run_correct(records, "cuda", model)
+        launched = cuda_beam.beam_consensus.launches - before
+        on_cpu, _ = run_correct(records, "cpu", model)
+        same = on_card == on_cpu
+        log(f"correct{' -model' if model else ''} card vs cpu on the "
+            f"{len(records)}-read fixture: {on_card.count('>')} / "
+            f"{on_cpu.count('>')} consensus sequences, {launched} beam "
+            f"kernel launches, byte-identical: {same}")
+        if not same or not on_card.count(">") or launched <= 0:
+            raise SystemExit("correct fasta on the card differs from the "
+                             "CPU's")
+
+
 def own_imports() -> set:
     """Top-level names of the modules this script imports itself."""
     import ast
@@ -379,25 +824,50 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
         f"CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    _build.load("chain_scan")
-    nvcc_s = _build.build_seconds.get("chain_scan")
-    log(f"chain_scan build: "
-        + (f"{nvcc_s:.2f} s nvcc" if nvcc_s is not None else "cached")
-        + f", {time.perf_counter() - t0:.2f} s with load")
+    names = ("chain_scan", "band_update", "beam_consensus")
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(_build.load, names))
+    log("kernel builds (parallel nvcc): " + ", ".join(
+        f"{n} " + (f"{_build.build_seconds[n]:.2f} s"
+                   if n in _build.build_seconds else "cached")
+        for n in names) + f"; {time.perf_counter() - t0:.2f} s with load")
 
     max_err, (ms, plain_ms) = phase_kernel(dev)
-    mapper, reads, launches = phase_slice(dev)
+    band_err, band_ms, band_plain_ms = phase_band(dev)
+    beam_err, (beam_ms, beam_plain_ms) = phase_beam(dev)
+    mapper, reads, map_launches = phase_slice(dev)
     phase_profile(mapper, reads)
     phase_card_vs_cpu(mapper, reads)
+    correct_records, correct_launches, correct_errs = phase_correct(dev)
+    profile_correct(correct_records, dev)
+    phase_correct_card_vs_cpu()
     if "jax" in sys.modules:
-        raise SystemExit("the port's map path imported jax")
+        raise SystemExit("the port's map or correct path imported jax")
+    # update_bands runs on no path: in the JAX package the Pallas band
+    # kernel is test-only, and its step is the beam kernel's inner loop
+    log(f"launches by path: map chain_scan {map_launches}; correct "
+        f"{correct_launches}")
 
     kernels = [{
         "name": "chain_scan", "route": "cuda",
         "source": "downpore_tpu_torch/csrc/chain_scan.cu",
         "replaces": "downpore_tpu/ops/pallas_chain.py:42",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}]
+        "launches": map_launches + correct_launches["chain_scan"],
+        "max_abs_err": max(max_err, correct_errs["chain_scan"]),
+        "ms": ms, "plain_ms": plain_ms}, {
+        "name": "update_bands", "route": "cuda",
+        "source": "downpore_tpu_torch/csrc/band_update.cu",
+        "replaces": "downpore_tpu/ops/pallas_band.py:36",
+        "launches": correct_launches["update_bands"],
+        "max_abs_err": band_err, "ms": band_ms, "plain_ms": band_plain_ms}, {
+        "name": "beam_consensus", "route": "cuda",
+        "source": "downpore_tpu_torch/csrc/beam_consensus.cu",
+        "replaces": "downpore_tpu/ops/pallas_beam.py:105",
+        "launches": correct_launches["beam_consensus"],
+        "max_abs_err": max(beam_err, correct_errs["beam_consensus"]),
+        "ms": beam_ms,
+        "plain_ms": beam_plain_ms}]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,12 @@ and names of its ``downpore_tpu`` counterpart, runs plain torch on tensors
 that live on an explicit ``device``, and replaces each Pallas kernel of
 the ported path with a hand-written CUDA kernel for Hopper (``csrc/``).
 The JAX-free host modules of ``downpore_tpu`` (core, io, seeds, native,
-sim, cli.framework, utils.kmers, mapping.mapper) are imported as they are;
-nothing in this package imports ``jax``.
+sim, align, cli.framework, utils.kmers, mapping.mapper, overlap,
+consensus) are imported as they are; nothing in this package imports
+``jax``.
 
-Ported so far: the ``map`` command on the flat retrieval gate.
+Ported so far: the ``map`` command on the flat retrieval gate, and the
+``correct`` command (overlap rounds and beam consensus).
 """
 from __future__ import annotations
 

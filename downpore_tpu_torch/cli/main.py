@@ -9,8 +9,9 @@ from downpore_tpu.cli.framework import aligned_print, parse_argv
 
 
 def get_commands():
+    from .correct_command import CorrectCommand
     from .map_command import MapCommand
-    return [MapCommand()]
+    return [MapCommand(), CorrectCommand()]
 
 
 def main(argv=None):

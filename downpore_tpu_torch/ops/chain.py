@@ -6,7 +6,8 @@ batched as ``[P, A]`` arrays over many (query, target) pairs.  A forward
 and a backward scan (``cuda_chain.chain_scan``, the Hopper kernel) give,
 for every anchor, the best chain through it, its covered bases and the
 chain's start/end coordinates; ``summarize_dp`` packs the per-pair
-quantities the mapper walks.
+quantities the mapper walks.  ``dp_forward_lean`` is the overlap path's
+forward-only DP (scores and backpointers).
 
 Ported are the functions of the map path.  The JAX module's int16
 ``small`` scan is not: the port computes in int32, which gives the same
@@ -90,6 +91,19 @@ def dp_from_anchors(anchors, k: int, variant: str = "extend"):
         "end_qp": e_qp, "end_tp": e_tp,
         "bp": bp,
     }
+
+
+def dp_forward_lean(anchors, k: int, variant: str = "extend"):
+    """Forward-only chain DP: a dict with ``qi, tj, f, bp``, exactly what
+    the overlap best-chain walk consumes.  The JAX module's lean scan
+    (``_chain_scan_lean``) carries the same recurrence as the full one, so
+    it takes the forward ``chain_scan`` kernel's score and backpointers."""
+    qi, tj, qp, tp, valid = (anchors["qi"], anchors["tj"], anchors["qp"],
+                             anchors["tp"], anchors["valid"])
+    f, _, _, _, _, bp = chain_scan(
+        qi.contiguous(), tj.contiguous(), qp.contiguous(), tp.contiguous(),
+        valid.to(torch.int32).contiguous(), k, variant)
+    return {"qi": qi, "tj": tj, "f": f, "bp": bp}
 
 
 def summarize_scalars(out, min_match, alen, k: int):

@@ -16,11 +16,19 @@ builds anchors against the resident chunk tables, runs the chain DP
 top-4 summaries.  ``collect_arrays_many`` brings the rows to the host for
 the mapper's candidate walk.
 
+The overlapper's half: ``dispatch_chains`` runs the same retrieval and
+gate on seed-sequence queries, the forward-only aligner-variant chain DP
+(``chain.dp_forward_lean``) and a walk of each passing pair's best chain
+back through its backpointers (``_overlap_from_counts``);
+``collect_chains`` turns the kept rows into per-query candidate lists.
+
 Dropped from the JAX engine because no output depends on them: the
 fixed pair budget and its 4x escalation (``nonzero`` yields every passing
 pair, which is what the escalated run converges to), batch-size buckets,
-combined int16 uploads, async host copies and clipped gathers.  The
-binned gate (>= 1024 chunks) and meshes are not ported yet and raise.
+the shape plan that pins compiled shapes across overlap rounds, the
+speculative chain prefetch, combined int16 uploads, async host copies and
+clipped gathers.  The binned gate (>= 1024 chunks) and meshes are not
+ported yet and raise.
 """
 from __future__ import annotations
 
@@ -32,8 +40,8 @@ import torch
 
 from .. import resolve_device
 from . import match as match_ops
-from .chain import make_anchors_topk, dp_from_anchors, summarize_dp, \
-    compact_indices
+from .chain import make_anchors_topk, dp_from_anchors, dp_forward_lean, \
+    summarize_dp, compact_indices
 
 # binned-retrieval engagement threshold of the JAX engine: at or above it
 # ``binned=True`` would take the two-level gate, which is not ported
@@ -149,21 +157,27 @@ def _derive_buckets(q_seeds, usable, H: int, hashed: bool):
     return rb, db
 
 
+def _build_anchors(mi, ci, q_seeds, q_pos, t_seeds, t_pos,
+                   chunk: int = _ANCHOR_CHUNK):
+    """Anchors (``make_anchors_topk``, 2 target occurrences per query
+    seed) of the selected (query row, chunk) pairs, built ``chunk`` pairs
+    at a time to bound the ``[chunk, nq, nt]`` equality tensor."""
+    parts = []
+    for lo in range(0, mi.shape[0], chunk):
+        m_c = mi[lo:lo + chunk]
+        c_c = ci[lo:lo + chunk]
+        parts.append(make_anchors_topk(q_seeds[m_c], q_pos[m_c],
+                                       t_seeds[c_c], t_pos[c_c],
+                                       per_seed=2))
+    return {key: torch.cat([p[key] for p in parts]) for key in parts[0]}
+
+
 def _chain_pack_tail(mi, ci, dc, q_seeds, q_pos, base_min, q_len, t_seeds,
                      t_pos, *, k: int, top_k: int, lean: bool):
     """Chain DP + summary packing over the selected (query, chunk) pairs.
     Returns ``(head [N, 3] int32 (query row, chunk, distinct count),
     packed [N, W] int16)``."""
-    N = mi.shape[0]
-    parts = []
-    for lo in range(0, N, _ANCHOR_CHUNK):
-        m_c = mi[lo:lo + _ANCHOR_CHUNK]
-        c_c = ci[lo:lo + _ANCHOR_CHUNK]
-        parts.append(make_anchors_topk(q_seeds[m_c], q_pos[m_c],
-                                       t_seeds[c_c], t_pos[c_c],
-                                       per_seed=2))
-    anchors = {key: torch.cat([p[key] for p in parts])
-               for key in parts[0]}
+    anchors = _build_anchors(mi, ci, q_seeds, q_pos, t_seeds, t_pos)
     out = dp_from_anchors(anchors, k)
     packed = summarize_dp(out, base_min[mi], q_len[mi], k, top_k,
                           lean=lean)
@@ -223,9 +237,101 @@ def _fused_map_d(q_pos, min_count, base_min, q_len, q_seeds, usable,
                             top_k=top_k, lean=lean)
 
 
+def _slice_chains(head, cq, ct, B: int, Lb: int):
+    """Kept-rows x real-length view of an overlap dispatch result."""
+    return head[:B], cq[:B, :Lb], ct[:B, :Lb]
+
+
+def _overlap_from_counts(counts, dcounts, q_seeds, q_pos, min_count,
+                         base_min, t_seeds, t_pos, *, k: int,
+                         variant: str = "aligner", chunk: int = 512,
+                         chain_len: int = 128):
+    """Gate + forward chain DP + best-chain walk from retrieval counts.
+
+    For every gate-passing (query row, chunk) pair, in query-major /
+    chunk-ascending order, the best chain ends at the first anchor of
+    maximal forward score (``jnp.argmax``'s tie-break); its anchors are
+    walked back through the backpointers for ``chain_len`` steps.  Rows
+    whose best chain is shorter than ``max(1, base_min)`` are dropped, the
+    rest kept in order.  Returns ``(head [n, 4] int32 (query row, chunk,
+    best chain length, distinct count), cq [n, chain_len] int8, ct
+    [n, chain_len] int16 (chain query / target seed indices, end -> start,
+    -1 padded), max kept min(length, chain_len))``, the arrays on the
+    device and the length a Python int."""
+    C = counts.shape[1]
+    dev = counts.device
+    ok = (counts >= min_count[:, None]) & (dcounts >= base_min[:, None]) \
+        & (min_count[:, None] > 0)
+    sel, n_ok = compact_indices(ok.reshape(-1))
+    if n_ok == 0:
+        return (torch.empty((0, 4), dtype=torch.int32, device=dev),
+                torch.empty((0, chain_len), dtype=torch.int8, device=dev),
+                torch.empty((0, chain_len), dtype=torch.int16, device=dev),
+                0)
+    mi = torch.div(sel, C, rounding_mode="floor")
+    ci = sel % C
+    anchors = _build_anchors(mi, ci, q_seeds, q_pos, t_seeds, t_pos, chunk)
+    out = dp_forward_lean(anchors, k, variant)
+    f, bp = out["f"], out["bp"]
+    qi_a, tj_a = out["qi"], out["tj"]
+    best_len = f.amax(dim=1)
+    best_a = torch.argmax(f, dim=1)          # first maximum, as jnp.argmax
+    rows = torch.arange(f.shape[0], device=dev)
+    a = torch.where(best_len > 0, best_a, -1)
+    cqs, cts = [], []
+    for _ in range(chain_len):
+        on = a >= 0
+        ac = a.clamp(min=0)
+        cqs.append(torch.where(on, qi_a[rows, ac], -1))
+        cts.append(torch.where(on, tj_a[rows, ac], -1))
+        a = torch.where(on, bp[rows, ac].long(), -1)
+    # qi < nq <= 128 and tj < nt <= 4096: the JAX engine's int8 / int16
+    # fetch types
+    cq = torch.stack(cqs, dim=1).to(torch.int8)
+    ct = torch.stack(cts, dim=1).to(torch.int16)
+    head = torch.stack([mi.to(torch.int32), ci.to(torch.int32),
+                        best_len.to(torch.int32),
+                        dcounts[mi, ci].to(torch.int32)], dim=1)
+    keep = best_len >= base_min[mi].clamp(min=1)
+    head, cq, ct = head[keep], cq[keep], ct[keep]
+    mx = int(best_len[keep].clamp(max=chain_len).amax()) if len(head) else 0
+    return head, cq, ct, mx
+
+
+def _fused_overlap(q_seeds, q_pos, q_rb, q_db, min_count, base_min,
+                   membership, t_seeds, t_pos, *, k: int,
+                   variant: str = "aligner", chunk: int = 512,
+                   chain_len: int = 128):
+    """Retrieval + gate + chain DP + best-chain walk with the run/distinct
+    bucket arrays shipped from the host (queries whose seeds overflow the
+    shipped width); see ``_overlap_from_counts``."""
+    counts = _count_rows(membership, q_rb)
+    dcounts = _count_rows(membership, q_db)
+    return _overlap_from_counts(counts, dcounts, q_seeds, q_pos, min_count,
+                                base_min, t_seeds, t_pos, k=k,
+                                variant=variant, chunk=chunk,
+                                chain_len=chain_len)
+
+
+def _fused_overlap_d(q_pos, min_count, base_min, q_seeds, usable,
+                     membership, t_seeds, t_pos, *, k: int,
+                     variant: str = "aligner", chunk: int = 512,
+                     chain_len: int = 128, hashed: bool = False):
+    """``_fused_overlap`` with the buckets derived on the device from the
+    seed ids (``_derive_buckets``): the standard overlap path."""
+    q_rb, q_db = _derive_buckets(q_seeds, usable, membership.shape[0],
+                                 hashed)
+    counts, dcounts = _count_rows_pair(membership, q_rb, q_db)
+    return _overlap_from_counts(counts, dcounts, q_seeds, q_pos, min_count,
+                                base_min, t_seeds, t_pos, k=k,
+                                variant=variant, chunk=chunk,
+                                chain_len=chain_len)
+
+
 class MapEngine:
-    """Resident device index + one-dispatch query pipeline for the mapper
-    (flat gate).  ``routes`` counts the dispatches per fused path."""
+    """Resident device index + one-dispatch query pipelines for the mapper
+    (flat gate) and the overlapper.  ``routes`` counts the dispatches per
+    fused path."""
 
     STATE_KEYS = ("membership", "t_seeds", "t_pos", "usable_dev",
                   "chunk_off", "chunk_inset", "chunk_len")
@@ -505,4 +611,129 @@ class MapEngine:
             head, packed = res
             out.append((head.cpu().numpy(),
                         packed.cpu().numpy().astype(np.int32)))
+        return out
+
+    # -- host-side seed-query packing (overlapper) -----------------------
+    def pack_queries(self, seed_queries: List,
+                     need_buckets: bool = True) -> tuple:
+        """Seed sequences -> fixed-shape query arrays ``(q_seeds, q_pos,
+        q_rb, q_db, num_sets, q_len)``.  Run-collapse and the usable mask
+        follow ``SeedIndex.matches`` (ref: seeds/seeds.go:335-353);
+        ``num_sets`` is the exact run count.  With ``need_buckets`` False
+        the bucket arrays stay -1."""
+        M = len(seed_queries)
+        nq = self.nq
+        q_seeds = np.full((M, nq), -1, np.int32)
+        q_pos = np.zeros((M, nq), np.int32)
+        q_rb = np.full((M, nq), -1, np.int32)
+        q_db = np.full((M, nq), -1, np.int32)
+        num_sets = np.zeros(M, np.int32)
+        q_len = np.zeros(M, np.int32)
+        for i, sq in enumerate(seed_queries):
+            s = sq.seeds
+            m = min(s.shape[0], nq)
+            q_seeds[i, :m] = s[:m]
+            q_pos[i, :m] = sq.seed_positions(self.k)[:m]
+            q_len[i] = sq.length
+            f = s[self.usable[s]]
+            if f.size:
+                runs = f[np.concatenate([[True], f[1:] != f[:-1]])]
+                num_sets[i] = runs.shape[0]
+                if not need_buckets:
+                    continue
+                rb = match_ops.hash_ids(runs, self.num_seeds, self.H)
+                r = min(rb.shape[0], nq)
+                q_rb[i, :r] = rb[:r]
+                db = np.unique(rb)
+                d = min(db.shape[0], nq)
+                q_db[i, :d] = db[:d]
+        return q_seeds, q_pos, q_rb, q_db, num_sets, q_len
+
+    # -- overlap dispatch / collect --------------------------------------
+    def query_chains(self, seed_queries: List, base_min: np.ndarray,
+                     chain_len: int = 128, variant: str = "aligner",
+                     min_sets: int = 5, _defer: bool = False):
+        """Fused retrieval + gate + chain + best-chain extraction.
+
+        Returns per query a list of (chunk idx, distinct count, best chain
+        length, query-anchor indices, target-anchor indices) in chunk
+        order: the overlapper's per-candidate best alignments.  Target
+        indices address the chunk's own seed list (truncated at
+        ``self.nt`` seeds)."""
+        M = len(seed_queries)
+        if M == 0 or self.C == 0:
+            return []
+        # the DP scans 2 * nq_eff anchors and the walk chain_len steps:
+        # sized to the batch's real max seed count on a 64 grid
+        max_ns = max((len(q.seeds) for q in seed_queries), default=1)
+        nq_eff = min(self.nq,
+                     max(32, ((min(max_ns, self.nq) + 63) // 64) * 64))
+        # buckets derive on the device when every query's seeds fit
+        derive = max_ns <= nq_eff
+        q_seeds, q_pos, q_rb, q_db, num_sets, _ = self.pack_queries(
+            seed_queries, need_buckets=not derive)
+        q_seeds = q_seeds[:, :nq_eff]
+        q_pos = q_pos[:, :nq_eff]
+        chain_len = min(chain_len, nq_eff)
+        min_count = (self.hit_fraction * num_sets + 0.5).astype(np.int64)
+        min_count[num_sets < min_sets] = 0
+        # anchor-build chunk: keeps the [CH, nq, nt] equality tensor near
+        # 256 MB as nt grows
+        a_chunk = max(128, min(1024,
+                               (1 << 28) // max(1, nq_eff * self.nt)))
+        dev = self.device
+        put = lambda a: torch.from_numpy(
+            np.ascontiguousarray(a, np.int32)).to(dev)
+        common = dict(q_pos=put(q_pos), min_count=put(min_count),
+                      q_seeds=put(q_seeds), membership=self.membership,
+                      t_seeds=self.t_seeds, t_pos=self.t_pos, k=self.k,
+                      variant=variant, chunk=a_chunk, chain_len=chain_len)
+        if derive:
+            self.routes["_fused_overlap_d"] += 1
+            res = _fused_overlap_d(
+                base_min=put(np.minimum(np.asarray(base_min), 1 << 14)),
+                usable=self.usable_dev, hashed=self._hashed, **common)
+        else:
+            self.routes["_fused_overlap"] += 1
+            res = _fused_overlap(q_rb=put(q_rb), q_db=put(q_db),
+                                 base_min=put(base_min), **common)
+        futs = (M, res)
+        return futs if _defer else self.collect_chains(futs)
+
+    def dispatch_chains(self, seed_queries: List, base_min: np.ndarray,
+                        chain_len: int = 128, variant: str = "aligner",
+                        min_sets: int = 5):
+        """First half of ``query_chains``: run the fused pipeline and
+        return its device result for ``collect_chains``."""
+        return self.query_chains(seed_queries, base_min, chain_len,
+                                 variant, min_sets, _defer=True)
+
+    def collect_chains_raw(self, futs):
+        """Host arrays of a ``dispatch_chains`` result: ``(M, head, cq,
+        ct)`` with head columns (query row, chunk, best chain length,
+        distinct count) over the kept rows, in query-major /
+        chunk-ascending order, and the chains sliced to the longest kept
+        one."""
+        if isinstance(futs, list):       # empty-input fast path
+            return 0, np.zeros((0, 4), np.int32), None, None
+        M, (head, cq, ct, mx) = futs
+        head, cq, ct = _slice_chains(head, cq, ct, len(head), max(1, mx))
+        return (M, head.cpu().numpy(), cq.cpu().numpy(),
+                ct.cpu().numpy())
+
+    def collect_chains(self, futs):
+        """Per-query candidate lists of a ``dispatch_chains`` result (see
+        ``query_chains``)."""
+        if isinstance(futs, list):       # empty-input fast path
+            return futs
+        M, head, cq, ct = self.collect_chains_raw(futs)
+        out = [[] for _ in range(M)]
+        live = np.flatnonzero((head[:, 0] >= 0) & (head[:, 0] < M)
+                              & (head[:, 2] > 0))
+        hl = head[live].tolist()
+        for i, b in enumerate(live.tolist()):
+            mi, ci, blen, dc = hl[i]
+            ma = cq[b, blen - 1::-1].tolist()
+            mb = ct[b, blen - 1::-1].tolist()
+            out[mi].append((ci, dc, blen, ma, mb))
         return out

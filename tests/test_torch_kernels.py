@@ -1,18 +1,19 @@
-"""The port's CUDA kernel against its plain torch version, and the kernel
-wrapper's contract.  This file imports no JAX, so it also runs on a card
+"""The port's CUDA kernels against their plain torch versions, and the
+kernel wrappers' contracts.  This file imports no JAX, so it also runs on a card
 machine without it:
 
     python -m pytest --noconftest tests/test_torch_kernels.py
 
 (``--noconftest`` skips tests/conftest.py, which sets up JAX).  Tests
 marked ``cuda`` skip without a card.  Kernel and plain version must agree
-exactly (tolerance 0: integer DP).
+exactly (tolerance 0: integer DP and float32 votes computed in one
+order).
 """
 import numpy as np
 import pytest
 import torch
 
-from downpore_tpu_torch.ops import cuda_chain
+from downpore_tpu_torch.ops import _build, cuda_band, cuda_beam, cuda_chain
 
 torch.set_num_threads(2)
 
@@ -23,7 +24,7 @@ VARIANTS = ["extend", "aligner"]
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the chain kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -124,3 +125,155 @@ def test_map_batch_on_card_matches_cpu(cuda_device):
            for ms in on_cpu.map_batch(reads)]
     assert got == ref
     assert sum(1 for ms in got if ms) >= 22
+
+
+def test_build_tag_covers_included_headers(tmp_path):
+    """An edited header changes the build tag of every source that
+    includes it, directly or through another header."""
+    (tmp_path / "a.cuh").write_text("#pragma once\nconstexpr int X = 1;\n")
+    (tmp_path / "b.cuh").write_text('#pragma once\n#include "a.cuh"\n')
+    (tmp_path / "k.cu").write_text('#include "b.cuh"\n#include <cstdio>\n')
+    (tmp_path / "other.cu").write_text("int f() { return 0; }\n")
+    tag = _build.source_tag("k", str(tmp_path))
+    other = _build.source_tag("other", str(tmp_path))
+    (tmp_path / "a.cuh").write_text("#pragma once\nconstexpr int X = 2;\n")
+    assert _build.source_tag("k", str(tmp_path)) != tag
+    assert _build.source_tag("other", str(tmp_path)) == other
+    assert _build.source_tag("beam_consensus") != \
+        _build.source_tag("band_update")
+
+
+def band_batch(rng, B, W=32):
+    """test_align.py's recipe: distances in [0, 40), bands in [0, 500)
+    with a quarter of the lanes pruned to BAND_FULL."""
+    ds = rng.integers(0, 40, (B, W)).astype(np.int32)
+    poffs = rng.integers(0, 500, (B, W)).astype(np.int32)
+    poffs[rng.random((B, W)) < 0.25] = cuda_band.BAND_FULL
+    return torch.from_numpy(ds), torch.from_numpy(poffs)
+
+
+def test_update_bands_checks_inputs():
+    a = torch.zeros((4, 32), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        cuda_band.update_bands(a.long(), a, 300)
+    with pytest.raises(ValueError):
+        cuda_band.update_bands(a, a[:, :16].contiguous(), 300)
+    with pytest.raises(ValueError):
+        cuda_band.update_bands(a[0], a[0], 300)
+
+
+def beam_jobs(rng, J, N, L, core=None, err=0.06):
+    """Member k-mer arrays (k = 5) of noisy copies of a random core, the
+    members of a job cut to differing lengths."""
+    seqs = np.full((J, N, L), -1, np.int32)
+    lens = np.zeros((J, N), np.int32)
+    firsts = np.zeros(J, np.int32)
+    for j in range(J):
+        base = rng.integers(0, 4, (core or L) + 4)
+        for n in range(N):
+            codes = base.copy()
+            m = rng.random(len(codes)) < err
+            codes[m] = rng.integers(0, 4, int(m.sum()))
+            ln = int(rng.integers(L * 3 // 4, L + 1))
+            km = np.zeros(ln, np.int64)
+            for i in range(5):
+                km = (km << 2) | codes[i:i + ln]
+            seqs[j, n, :ln] = km
+            lens[j, n] = ln
+        firsts[j] = seqs[j, 0, 0]
+    return [torch.from_numpy(a) for a in (seqs, lens, firsts)]
+
+
+def test_beam_consensus_checks_inputs():
+    seqs, lens, firsts = beam_jobs(np.random.default_rng(0), 2, 3, 40)
+    with pytest.raises(TypeError):
+        cuda_beam.beam_consensus(seqs.long(), lens, firsts, None, 5, 4, 64,
+                                 300, 8, 5)
+    with pytest.raises(ValueError):
+        cuda_beam.beam_consensus(seqs, lens[:1], firsts, None, 5, 4, 64,
+                                 300, 8, 5)
+    with pytest.raises(ValueError):     # 4 * beam candidates > one warp
+        cuda_beam.beam_consensus(seqs, lens, firsts, None, 5, 9, 64, 300,
+                                 8, 5)
+    with pytest.raises(ValueError):     # the table measure needs a table
+        cuda_beam.beam_consensus(seqs, lens, firsts, None, 5, 4, 64, 300,
+                                 8, 0)
+
+
+@pytest.mark.cuda
+def test_update_bands_kernel_matches_plain_on_card(cuda_device):
+    rng = np.random.default_rng(21)
+    for B, W in ((37, 32), (4096, 32), (100, 20)):
+        ds, poffs = (a.to(cuda_device) for a in band_batch(rng, B, W))
+        before = cuda_band.update_bands.launches
+        out, m = cuda_band.update_bands(ds, poffs, 300)
+        ref_out, ref_m = cuda_band.update_bands_plain(ds, poffs, 300)
+        torch.cuda.synchronize()
+        assert cuda_band.update_bands.launches == before + 1
+        assert torch.equal(out, ref_out) and torch.equal(m, ref_m), (B, W)
+
+
+def simple_table(k=5):
+    """The simple measure's [4^k, 4^k] distance table as int16 bits."""
+    from downpore_tpu_torch.ops.dtw import _simple_distance
+    ar = torch.arange(4 ** k, dtype=torch.int32)
+    return _simple_distance(ar[:, None], ar[None, :], k).to(torch.int16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("measure", ["simple", "table"])
+def test_beam_consensus_kernel_matches_plain_on_card(cuda_device, measure):
+    rng = np.random.default_rng(5)
+    simple_k = 5 if measure == "simple" else 0
+    table = None if simple_k else simple_table().to(cuda_device)
+    for J, N, L, beam in ((40, 4, 128, 4), (9, 8, 640, 4), (6, 5, 128, 8)):
+        seqs, lens, firsts = (a.to(cuda_device)
+                              for a in beam_jobs(rng, J, N, L))
+        t_max = ((int(L * 1.3) + 32 + 31) // 32) * 32
+        args = (seqs, lens, firsts, table, 5, beam, t_max, 300, 8, simple_k)
+        before = cuda_beam.beam_consensus.launches
+        chains, ns = cuda_beam.beam_consensus(*args)
+        rec = cuda_beam.beam_consensus(*args, return_records=True)
+        ref_chains, ref_ns = cuda_beam.beam_consensus_plain(*args)
+        ref_rec = cuda_beam.beam_consensus_plain(*args, return_records=True)
+        torch.cuda.synchronize()
+        assert cuda_beam.beam_consensus.launches == before + 2
+        assert torch.equal(ns, ref_ns) and torch.equal(chains, ref_chains)
+        assert torch.equal(rec, ref_rec), (J, N, L, beam)
+        # early exit + in-kernel traceback == the full records' traceback
+        walked = cuda_beam.traceback_plain(rec, t_max)
+        assert torch.equal(walked[0], chains) and torch.equal(walked[1], ns)
+
+
+@pytest.mark.cuda
+def test_beam_consensus_kernel_scratch_route_on_card(cuda_device):
+    """A bucket whose per-member state overflows shared memory keeps it in
+    a device scratch, with the same result."""
+    rng = np.random.default_rng(6)
+    N = 600
+    seqs, lens, firsts = (a.to(cuda_device)
+                          for a in beam_jobs(rng, 2, N, 96, err=0.04))
+    args = (seqs, lens, firsts, None, 5, 4, 160, 300, 8, 5)
+    got = cuda_beam.beam_consensus(*args)
+    ref = cuda_beam.beam_consensus_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.cuda
+def test_correct_on_card_matches_cpu(cuda_device):
+    """The correct path on the card launches the beam kernel and prints
+    the same fasta as on the CPU (chip_smoke.py's 48-read fixture)."""
+    import importlib.util
+    import os
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(repo, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    records = smoke.golden_overlap_records()[:32]
+    before = cuda_beam.beam_consensus.launches
+    on_card, _ = smoke.run_correct(records, "cuda")
+    assert cuda_beam.beam_consensus.launches > before
+    on_cpu, _ = smoke.run_correct(records, "cpu")
+    assert on_card == on_cpu and on_card.count(">") >= 1
