@@ -44,7 +44,26 @@ Phases (any failure ends the run with a non-zero exit):
    ``chiprun_out/profile_correct.txt``);
 6. card vs CPU: ``correct`` on test_cli_golden.py's 48-read overlap
    recipe gives byte-identical fasta on the card and on the CPU, with the
-   simple-k measure and with a ``-model`` table measure.
+   simple-k measure and with a ``-model`` table measure;
+7. map at chromosome scale (``phase_chromosome``, bench.py's
+   ``_map_case(64_000_000, 13, 2048, "64Mb")``): a synthetic 64 Mb genome
+   (k = 13, seed rate 40, 10 kb chunks with 1 kb edges: ~6,465 chunks, so
+   the binned gate), 2048 reads of 6-10 kb at 8% substitutions, odd reads
+   reverse-complemented: host index-build seconds, resident bytes on the
+   card, routes (``_fused_map_bd`` must be taken), the largest ``n_bin``
+   and final ``BB``, one warm-up pass whose chain launches are all held
+   against the plain version, three timed passes with the chain launch
+   count, recall (>= 0.90), peak device memory, one profiled pass
+   (``chiprun_out/profile_map_64mb.txt``) and card-vs-CPU PAF identity on
+   the first 64 reads;
+8. overlap, all-vs-all (``phase_overlap``, bench.py's
+   ``bench_overlap_gb`` input: 12,000 reads of 8 kb at 5% substitutions
+   from a 2 Mb genome): ``overlap`` through the port's CLI, stdout to a
+   file; its per-round stderr and PAF line count must equal the JAX
+   package's recorded run (6 rounds, 721,379 lines); wall split into
+   k-mer counting, round prep, find and final checks; resident bytes per
+   round; the first round's chain launches held against the plain version;
+   device busy time and idle share of round 2 under ``torch.profiler``.
 
 It prints the kernel table as one JSON line, the nvidia-smi line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a usable CUDA
@@ -54,8 +73,10 @@ fails if the port pulled ``jax`` in.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
+import os
 import subprocess
 import sys
 import time
@@ -252,6 +273,10 @@ PROFILE_RANGES = (
      "dev:derive_buckets"),
     ("downpore_tpu_torch.ops.map_engine", "_count_rows_pair",
      "dev:count_rows_pair"),
+    ("downpore_tpu_torch.ops.map_engine", "_binned_gate",
+     "dev:binned_gate"),
+    ("downpore_tpu_torch.ops.map_engine", "_binned_counts_pair",
+     "dev:binned_counts_pair"),
     ("downpore_tpu_torch.ops.map_engine", "compact_indices",
      "dev:gate_compact"),
     ("downpore_tpu_torch.ops.map_engine", "make_anchors_topk",
@@ -291,60 +316,78 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def phase_profile(mapper, reads, out_path=PROFILE_OUT):
-    """One unsharded ``map_batch`` pass under ``torch.profiler`` (CPU +
-    CUDA), with the stages of ``PROFILE_RANGES`` ranged.  Unsharded,
-    because ``map_batch`` maps 2048 reads or more as two shards on two
-    threads, and the profiler records ranges only on the thread that
-    started it; the device work is the same.  Prints the pass's wall time,
-    the device's busy time (union of kernel, copy and set spans: the user
-    ranges' own device spans are left out, since they nest over kernels
-    already counted) and idle share, the kernel launch count, and each
-    range's host time and device span; writes the profiler tables to
-    ``out_path``."""
-    import importlib
-    import os
+def device_busy(events, wall_s: float) -> str:
+    """The device's busy time (union of its kernel, copy and set spans:
+    user ranges' device spans nest over kernels already counted and are
+    left out) and idle share over a window of ``wall_s`` seconds of
+    profiler ``events``, as a log fragment."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    work = [e for e in events
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    if not work:
+        return ("no device work seen: device busy time and idle share not "
+                "measured")
+    busy_ms = _busy_us((e.time_range.start, e.time_range.end)
+                       for e in work) / 1e3
+    return (f"device busy {busy_ms:.3f} ms ({len(work)} device events), "
+            f"idle share {1 - busy_ms / (wall_s * 1e3):.4f}")
 
-    patched = []
-    for where, attr, name in PROFILE_RANGES:
+
+def timed(fn, key: str, spent: dict, dev):
+    """``fn`` that adds its seconds, up to a device synchronize, to
+    ``spent[key]``."""
+    def wrapper(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            sync(dev)
+            spent[key] += time.perf_counter() - t
+    return wrapper
+
+
+@contextlib.contextmanager
+def patched(subs):
+    """``(owner, attribute, replacement)`` substitutions for the block;
+    afterwards each attribute is restored, or unshadowed where the owner
+    inherited it."""
+    saved = [(owner, n, owner.__dict__.get(n)) for owner, n, _ in subs]
+    for owner, n, fn in subs:
+        setattr(owner, n, fn)
+    try:
+        yield
+    finally:
+        for owner, n, fn in reversed(saved):
+            if fn is None:
+                delattr(owner, n)
+            else:
+                setattr(owner, n, fn)
+
+
+def ranged(ranges):
+    """``patched`` wrapping each ``(module[:class], attribute, name)`` of
+    ``ranges`` in a ``torch.profiler.record_function`` range."""
+    import importlib
+    subs = []
+    for where, attr, name in ranges:
         mod, _, cls = where.partition(":")
         owner = importlib.import_module(mod)
         if cls:
             owner = getattr(owner, cls)
-        patched.append((owner, attr, owner.__dict__[attr]))
-        setattr(owner, attr, _ranged(getattr(owner, attr), name))
-    try:
-        sync(mapper.device)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            mapper._map_batch_one(reads)
-            sync(mapper.device)
-            wall = time.perf_counter() - t0
-    finally:
-        for owner, attr, orig in patched:
-            setattr(owner, attr, orig)
+        subs.append((owner, attr, _ranged(getattr(owner, attr), name)))
+    return patched(subs)
 
+
+def report_ranges(prof, ranges, out_path):
+    """Each range's call count, host time and device span in the events of
+    ``prof``; the profiler tables go to ``out_path``."""
+    from torch.autograd import DeviceType
     evts = prof.events()
-    work = [e for e in evts
-            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    busy_ms = _busy_us((e.time_range.start, e.time_range.end)
-                       for e in work) / 1e3
-    busy = (f"device busy {busy_ms:.3f} ms ({len(work)} device events), "
-            f"idle share {1 - busy_ms / (wall * 1e3):.4f}" if work else
-            "no device work seen: device busy time and idle share not "
-            "measured")
-    launches = sum(1 for e in evts if e.name == "cudaLaunchKernel")
-    sync_ms = sum(e.time_range.elapsed_us() for e in evts
-                  if e.name == "cudaStreamSynchronize") / 1e3
-    log(f"profiled unsharded pass: wall {wall * 1e3:.3f} ms; {busy}; {launches} "
-        f"cudaLaunchKernel; host waits in cudaStreamSynchronize "
-        f"{sync_ms:.3f} ms")
-    for _, _, name in PROFILE_RANGES:
+    for _, _, name in ranges:
         host = [e for e in evts if e.name == name
                 and e.device_type == DeviceType.CPU]
+        if not host:
+            continue
         dev = [e for e in evts if e.name == name
                and e.device_type == DeviceType.CUDA]
         host_ms = sum(e.time_range.elapsed_us() for e in host) / 1e3
@@ -360,11 +403,42 @@ def phase_profile(mapper, reads, out_path=PROFILE_OUT):
     log(f"profiler tables written to {out_path}")
 
 
-def phase_card_vs_cpu(mapper, reads):
+def phase_profile(mapper, reads, out_path=PROFILE_OUT):
+    """One unsharded ``map_batch`` pass under ``torch.profiler`` (CPU +
+    CUDA), with the stages of ``PROFILE_RANGES`` ranged.  Unsharded,
+    because ``map_batch`` maps 2048 reads or more as two shards on two
+    threads, and the profiler records ranges only on the thread that
+    started it; the device work is the same.  Prints the pass's wall time,
+    the device's busy time and idle share (``device_busy``), the kernel
+    launch count, and each range's host time and device span; writes the
+    profiler tables to ``out_path``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with ranged(PROFILE_RANGES):
+        sync(mapper.device)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            mapper._map_batch_one(reads)
+            sync(mapper.device)
+            wall = time.perf_counter() - t0
+    evts = prof.events()
+    launches = sum(1 for e in evts if e.name == "cudaLaunchKernel")
+    sync_ms = sum(e.time_range.elapsed_us() for e in evts
+                  if e.name == "cudaStreamSynchronize") / 1e3
+    log(f"profiled unsharded pass: wall {wall * 1e3:.3f} ms; "
+        f"{device_busy(evts, wall)}; {launches} cudaLaunchKernel; host waits "
+        f"in cudaStreamSynchronize {sync_ms:.3f} ms")
+    report_ranges(prof, PROFILE_RANGES, out_path)
+
+
+def phase_card_vs_cpu(mapper, reads, n: int = 256):
+    """The first ``n`` reads mapped on the card and by a CPU engine built
+    from the same index: byte-identical PAF."""
     cpu = copy.copy(mapper)
     cpu.device = torch.device("cpu")
     cpu._build_device_index()
-    sub = reads[:256]
+    sub = reads[:n]
     on_card = [mapper.as_string(m) for ms in mapper.map_batch(sub)
                for m in ms]
     on_cpu = [cpu.as_string(m) for ms in cpu.map_batch(sub) for m in ms]
@@ -552,33 +626,37 @@ def run_correct(records, device: str, model: bool = False):
     """``correct -input reads.fa`` through the port's CLI on ``device``
     (with ``-model`` and a ``write_model`` file when ``model``); returns
     (stdout, stderr)."""
-    import contextlib
     import io
-    import os
     import tempfile
-    from downpore_tpu_torch import DEVICE_ENV
     from downpore_tpu_torch.cli.main import main as cli_main
+    out, err = io.StringIO(), io.StringIO()
+    with tempfile.TemporaryDirectory() as d, device_env(device):
+        path = os.path.join(d, "reads.fasta")
+        with open(path, "w") as f:
+            f.writelines(f">{n}\n{s}\n" for n, s in records)
+        argv = ["correct", "-input", path]
+        if model:
+            argv += ["-model", os.path.join(d, "model.txt")]
+            write_model(argv[-1])
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            cli_main(argv)
+    return out.getvalue(), err.getvalue()
+
+
+@contextlib.contextmanager
+def device_env(device: str):
+    """The port's device variable set to ``device`` for the block."""
+    from downpore_tpu_torch import DEVICE_ENV
     old = os.environ.get(DEVICE_ENV)
     os.environ[DEVICE_ENV] = device
-    out, err = io.StringIO(), io.StringIO()
     try:
-        with tempfile.TemporaryDirectory() as d:
-            path = os.path.join(d, "reads.fasta")
-            with open(path, "w") as f:
-                f.writelines(f">{n}\n{s}\n" for n, s in records)
-            argv = ["correct", "-input", path]
-            if model:
-                argv += ["-model", os.path.join(d, "model.txt")]
-                write_model(argv[-1])
-            with contextlib.redirect_stdout(out), \
-                    contextlib.redirect_stderr(err):
-                cli_main(argv)
+        yield
     finally:
         if old is None:
             del os.environ[DEVICE_ENV]
         else:
             os.environ[DEVICE_ENV] = old
-    return out.getvalue(), err.getvalue()
 
 
 def _kmer_codes(seq: np.ndarray, k: int) -> np.ndarray:
@@ -632,7 +710,7 @@ def check_recorded(calls) -> dict:
         log(f"  {name} {list(args[0].shape)} {scalars}: max_abs_err={err}")
         if err != 0:
             raise SystemExit(f"{name} differs from its plain version at a "
-                             f"shape of the correct path")
+                             f"shape of a main path")
     return errs
 
 
@@ -651,31 +729,18 @@ def phase_correct(dev):
         f"{bases} bases ({bases / CORRECT_GENOME:.1f}x), generated in "
         f"{time.perf_counter() - t0:.1f} s")
     spent = {"overlap": 0.0, "consensus": 0.0}
-
-    def timed(fn, key):
-        def wrapper(*a, **kw):
-            t = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                sync(dev)
-                spent[key] += time.perf_counter() - t
-        return wrapper
-
-    patched = [(Overlapper, n, "overlap") for n in
-               ("prepare_queries", "add_sequences", "find_overlaps")]
-    patched.append((cons_mod, "build_consensus_bulk", "consensus"))
-    saved = [(owner, n, owner.__dict__.get(n)) for owner, n, _ in patched]
-    for owner, n, key in patched:
-        setattr(owner, n, timed(getattr(owner, n), key))
+    calls = []
+    subs = [(owner, n, timed(getattr(owner, n), key, spent, dev))
+            for owner, n, key in
+            [(Overlapper, n, "overlap") for n in
+             ("prepare_queries", "add_sequences", "find_overlaps")]
+            + [(cons_mod, "build_consensus_bulk", "consensus")]]
+    subs += [(mod, "_launch", recording(mod._launch, plain, calls))
+             for mod, plain in ((cuda_chain, cuda_chain.chain_scan_plain),
+                                (cuda_beam, cuda_beam.beam_consensus_plain))]
     kernels = (cuda_chain.chain_scan, cuda_band.update_bands,
                cuda_beam.beam_consensus)
-    calls = []
-    for mod, plain in ((cuda_chain, cuda_chain.chain_scan_plain),
-                       (cuda_beam, cuda_beam.beam_consensus_plain)):
-        saved.append((mod, "_launch", mod._launch))
-        mod._launch = recording(mod._launch, plain, calls)
-    try:
+    with patched(subs):
         for kern in kernels:
             kern.launches = 0
         t0 = time.perf_counter()
@@ -683,12 +748,6 @@ def phase_correct(dev):
         sync(dev)
         wall = time.perf_counter() - t0
         launches = {kern.__name__: kern.launches for kern in kernels}
-    finally:
-        for owner, n, fn in saved:
-            if fn is None:
-                delattr(owner, n)          # inherited: unshadow it
-            else:
-                setattr(owner, n, fn)
     lines = out.splitlines()
     names = [ln[1:] for ln in lines if ln.startswith(">")]
     seqs = [ln for ln in lines if ln and not ln.startswith(">")]
@@ -733,9 +792,7 @@ def profile_correct(records, dev, out_path=PROFILE_CORRECT_OUT, top=20):
     ``out_path``."""
     import cProfile
     import io
-    import os
     import pstats
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     sync(dev)
@@ -745,13 +802,8 @@ def profile_correct(records, dev, out_path=PROFILE_CORRECT_OUT, top=20):
         run_correct(records, dev.type)
         sync(dev)
         wall = time.perf_counter() - t0
-    work = [e for e in prof.events()
-            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    busy_ms = _busy_us((e.time_range.start, e.time_range.end)
-                       for e in work) / 1e3
-    log(f"correct under torch.profiler: wall {wall * 1e3:.3f} ms; device "
-        f"busy {busy_ms:.3f} ms ({len(work)} device events), idle share "
-        f"{1 - busy_ms / (wall * 1e3):.4f}")
+    log(f"correct under torch.profiler: wall {wall * 1e3:.3f} ms; "
+        f"{device_busy(prof.events(), wall)}")
 
     pr = cProfile.Profile()
     t0 = time.perf_counter()
@@ -794,6 +846,304 @@ def phase_correct_card_vs_cpu():
         if not same or not on_card.count(">") or launched <= 0:
             raise SystemExit("correct fasta on the card differs from the "
                              "CPU's")
+
+
+CHR_GENOME = 64_000_000
+CHR_READS = 2048
+CHR_K = 13
+CHR_PAF_READS = 64
+PROFILE_CHR_OUT = "chiprun_out/profile_map_64mb.txt"
+
+
+def resident_bytes(eng, names) -> dict:
+    """Bytes on the card of each named engine tensor (aliases once)."""
+    seen, out = set(), {}
+    for name in names:
+        t = getattr(eng, name, None)
+        if t is not None and id(t) not in seen:
+            seen.add(id(t))
+            out[name] = t.numel() * t.element_size()
+    return out
+
+
+def phase_chromosome(dev):
+    """The map path at chromosome scale (bench.py's 64 Mb case), on the
+    binned gate.  Returns the chain kernel's launch count over the three
+    timed passes and the max abs error of the warm-up pass's launches
+    against the plain version."""
+    from downpore_tpu_torch.core import Sequence
+    from downpore_tpu_torch.mapping import Mapper
+    from downpore_tpu_torch.ops import cuda_chain
+    from downpore_tpu_torch.utils import kmer_occurrences, score_seed_values
+
+    t0 = time.perf_counter()
+    genome, reads, truth = make_case(CHR_READS, CHR_GENOME)
+    ref = Sequence.from_string(genome, id=0, name="ref")
+    del genome
+    log(f"chromosome case: {CHR_GENOME} b genome, {len(reads)} reads "
+        f"({time.perf_counter() - t0:.1f} s to generate)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    values = score_seed_values(kmer_occurrences([ref], CHR_K), CHR_K)
+    t_values = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mapper = Mapper(ref, False, CHR_K, values, seed_rate=40,
+                    edge_size=1000, chunk_size=10000, device=dev)
+    sync(dev)
+    t_index = time.perf_counter() - t0
+    eng = mapper.engine
+    if not eng._binned:
+        raise SystemExit(f"{eng.C} chunks did not engage the binned gate")
+    res = resident_bytes(eng, ("membership", "bin_mem1", "bin_mem2",
+                               "t_seeds", "t_pos", "usable_dev"))
+    log(f"chromosome index: {eng.C} chunks, {eng.num_seeds} seeds, H={eng.H} "
+        f"(hashed {eng._hashed}), H1={eng.H1}, NB={eng._NB}, CB={eng._CB}, "
+        f"nq={eng.nq}, nt={eng.nt}; host seconds: k-mer values "
+        f"{t_values:.1f}, index build {t_index:.1f}; resident bytes "
+        f"{res} = {sum(res.values())}")
+
+    bases = sum(len(r) for r in reads)
+    calls = []
+    with patched([(cuda_chain, "_launch", recording(
+            cuda_chain._launch, cuda_chain.chain_scan_plain, calls))]):
+        t0 = time.perf_counter()
+        mapper.map_batch(reads)                   # warm-up, recorded
+        sync(dev)
+    log(f"chromosome warm-up pass {time.perf_counter() - t0:.3f} s; its "
+        f"{len(calls)} chain launches against the plain version:")
+    err = check_recorded(calls).get("chain_scan", 0)
+    del calls
+
+    eng.routes.clear()
+    eng.bins.clear()
+    cuda_chain.chain_scan.launches = 0
+    walls = []
+    for _ in range(TIMED_PASSES):
+        t0 = time.perf_counter()
+        results = mapper.map_batch(reads)
+        sync(dev)
+        walls.append(time.perf_counter() - t0)
+    launches = cuda_chain.chain_scan.launches
+    routes = dict(eng.routes)
+    wall = float(np.median(walls))
+    n_bin = max(n for n, _ in eng.bins)
+    log(f"chromosome map_batch, {TIMED_PASSES} passes: wall "
+        f"{', '.join(f'{w:.4f}' for w in walls)} s; median {wall:.4f} s = "
+        f"{bases / wall:.0f} bases/s ({bases} bases); chain_scan launches "
+        f"{launches}; routes {routes}; binned dispatches by (n_bin, BB) "
+        f"{dict(sorted(eng.bins.items()))}: largest n_bin {n_bin}, final BB "
+        f"{max(bb for _, bb in eng.bins)}; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    if launches <= 0:
+        raise SystemExit("the chromosome map launched no chain_scan kernel")
+    if routes.get("_fused_map_bd", 0) <= 0:
+        raise SystemExit(f"the chromosome map never took _fused_map_bd: "
+                         f"{routes}")
+    rec = recall(results, truth)
+    log(f"chromosome recall: {rec:.4f}")
+    if rec < RECALL_MIN:
+        raise SystemExit(f"chromosome recall {rec:.4f} < {RECALL_MIN}")
+    phase_profile(mapper, reads, PROFILE_CHR_OUT)
+    phase_card_vs_cpu(mapper, reads, CHR_PAF_READS)
+    return launches, err
+
+
+OV_GENOME = 2_000_000
+OV_READS = 12_000
+OV_READ_LEN = 8000
+OV_ERR = 0.05
+OV_PROFILED_ROUND = 2
+# the JAX package's overlap command on this input (BENCH_r05.json's tail)
+OV_STDERR = [
+    "Using query set with 3958 sequences starting from 1979 against "
+    "12000 sequences.",
+    "Total 103007 hits across 3957 overlaps.",
+    "Using query set with 3936 sequences starting from 3961 against "
+    "12000 sequences.",
+    "Total 116480 hits across 3936 overlaps.",
+    "Using query set with 3932 sequences starting from 5973 against "
+    "12000 sequences.",
+    "Total 127837 hits across 3932 overlaps.",
+    "Using query set with 3944 sequences starting from 8025 against "
+    "12000 sequences.",
+    "Total 138312 hits across 3944 overlaps.",
+    "Using query set with 3958 sequences starting from 10167 against "
+    "12000 sequences.",
+    "Total 144600 hits across 3958 overlaps.",
+    "Using query set with 3196 sequences starting from 12000 against "
+    "12000 sequences.",
+    "Total 119012 hits across 3196 overlaps.",
+]
+OV_PAF_LINES = 721_379
+PROFILE_OV_OUT = "chiprun_out/profile_overlap.txt"
+OV_RANGES = (
+    ("downpore_tpu_torch.ops.map_engine:MapEngine", "__init__",
+     "host:engine_build"),
+    ("downpore_tpu_torch.ops.map_engine:MapEngine", "pack_queries",
+     "host:pack_queries"),
+    ("downpore_tpu_torch.ops.map_engine", "_derive_buckets",
+     "dev:derive_buckets"),
+    ("downpore_tpu_torch.ops.map_engine", "_count_rows_pair",
+     "dev:count_rows_pair"),
+    ("downpore_tpu_torch.ops.map_engine", "_count_rows", "dev:count_rows"),
+    ("downpore_tpu_torch.ops.map_engine", "_overlap_from_counts",
+     "dev:overlap_from_counts"),
+    ("downpore_tpu_torch.ops.map_engine", "_build_anchors",
+     "dev:build_anchors"),
+    ("downpore_tpu_torch.ops.map_engine", "dp_forward_lean",
+     "dev:dp_forward_lean"),
+    ("downpore_tpu_torch.ops.map_engine:MapEngine", "collect_chains_raw",
+     "host:collect_chains_raw"),
+    ("downpore_tpu_torch.overlap.overlapper:Overlapper",
+     "collect_find_arrays", "host:collect_find_arrays"),
+    ("downpore_tpu_torch.cli.overlap_command:OverlapCommand",
+     "_emit_records", "host:emit_records"),
+)
+
+
+def write_overlap_reads(path: str) -> int:
+    """bench.py's ``bench_overlap_gb`` input (``_make_genome_reads``):
+    OV_READS reads of OV_READ_LEN bases from a OV_GENOME-base genome at
+    OV_ERR substitutions, odd reads reverse-complemented.  Returns the
+    file's size in bytes."""
+    genome = BASES[np.random.default_rng(SEED + 50).integers(0, 4,
+                                                             OV_GENOME)]
+    rng = np.random.default_rng(SEED + 51)
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    B = 2048
+    with open(path, "w", buffering=1 << 22) as f:
+        for lo in range(0, OV_READS, B):
+            n = min(B, OV_READS - lo)
+            starts = rng.integers(0, len(genome) - OV_READ_LEN, n)
+            rows = np.stack([genome[s:s + OV_READ_LEN] for s in starts])
+            m = rng.random(rows.shape) < OV_ERR
+            rows[m] = BASES[rng.integers(0, 4, int(m.sum()))]
+            chunks = []
+            for i in range(n):
+                s = rows[i].tobytes()
+                if (lo + i) % 2:
+                    s = s.translate(comp)[::-1]
+                chunks.append(f">gr{lo + i}\n")
+                chunks.append(s.decode())
+                chunks.append("\n")
+            f.write("".join(chunks))
+    return os.path.getsize(path)
+
+
+def phase_overlap(dev):
+    """``overlap`` through the port's CLI on bench.py's overlap_gb input,
+    with the stages of ``OV_RANGES`` ranged and round OV_PROFILED_ROUND
+    under ``torch.profiler`` (tables in PROFILE_OV_OUT).  Returns the chain
+    kernel's launch count of the run and the max abs error of the first
+    round's launches against the plain version."""
+    import hashlib
+    import io
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    import downpore_tpu_torch.utils as port_utils
+    from downpore_tpu_torch.cli.main import main as cli_main
+    from downpore_tpu_torch.cli.overlap_command import OverlapCommand
+    from downpore_tpu_torch.ops import cuda_chain
+    from downpore_tpu_torch.overlap import Overlapper
+
+    spent = {"kmers": 0.0, "prep": 0.0, "find": 0.0, "final": 0.0}
+    per_round, calls = [], []
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof_t0 = []
+    launch = cuda_chain._launch
+    find_timed = timed(Overlapper.dispatch_find, "find", spent, dev)
+    final_timed = timed(OverlapCommand._final_checks_arrays, "final", spent,
+                        dev)
+
+    def find(self, queries):
+        r = len(per_round) + 1
+        if r == 1:     # hold the first round's launches to the plain scan
+            cuda_chain._launch = recording(launch,
+                                           cuda_chain.chain_scan_plain, calls)
+        if r == OV_PROFILED_ROUND:
+            sync(dev)
+            prof.start()
+            prof_t0.append(time.perf_counter())
+        try:
+            out = find_timed(self, queries)
+        finally:
+            cuda_chain._launch = launch
+        eng = out[0]
+        per_round.append((eng.C, eng.H, eng.nt, sum(resident_bytes(
+            eng, ("membership", "t_seeds", "t_pos", "usable_dev")).values())))
+        return out
+
+    def final(self, *a):
+        try:
+            return final_timed(self, *a)
+        finally:
+            if len(per_round) == OV_PROFILED_ROUND and len(prof_t0) == 1:
+                prof.stop()
+                prof_t0.append(time.perf_counter())
+
+    subs = [(port_utils, "kmer_occurrences",
+             timed(port_utils.kmer_occurrences, "kmers", spent, dev)),
+            (Overlapper, "prepare_round",
+             timed(Overlapper.prepare_round, "prep", spent, dev)),
+            (Overlapper, "dispatch_find", find),
+            (OverlapCommand, "_final_checks_arrays", final)]
+    err = io.StringIO()
+    with tempfile.TemporaryDirectory() as d, device_env(dev.type):
+        path = os.path.join(d, "reads.fasta")
+        t0 = time.perf_counter()
+        nbytes = write_overlap_reads(path)
+        log(f"overlap case: {OV_READS} reads x {OV_READ_LEN} b from a "
+            f"{OV_GENOME} b genome, {nbytes} bytes of fasta, written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        out_path = os.path.join(d, "overlap.paf")
+        torch.cuda.reset_peak_memory_stats()
+        cuda_chain.chain_scan.launches = 0
+        with patched(subs), ranged(OV_RANGES):
+            t0 = time.perf_counter()
+            with open(out_path, "w", buffering=1 << 22) as out, \
+                    contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                cli_main(["overlap", "-input", path])
+            sync(dev)
+            wall = time.perf_counter() - t0
+            launches = cuda_chain.chain_scan.launches
+        with open(out_path, "rb") as f:
+            paf = f.read()
+    n_paf = paf.count(b"\n")
+    stderr = err.getvalue().splitlines()
+    rounds = [ln for ln in stderr if ln.startswith(("Using query set",
+                                                    "Total "))]
+    other = wall - spent["kmers"] - spent["find"] - spent["final"]
+    log(f"overlap on the card: wall {wall:.3f} s = k-mer counting "
+        f"{spent['kmers']:.3f} s + find {spent['find']:.3f} s + final "
+        f"checks {spent['final']:.3f} s + the rest {other:.3f} s (parsing, "
+        f"round 1's prep, waits for the worker's prep); round prep "
+        f"{spent['prep']:.3f} s in all, on the worker thread after round "
+        f"1, beside the find and checks; {len(per_round)} rounds; "
+        f"chain_scan launches {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes; {n_paf} PAF lines, "
+        f"sha256 {hashlib.sha256(paf).hexdigest()}")
+    for r, (C, H, nt, nb) in enumerate(per_round, 1):
+        log(f"  round {r}: {C} chunks, H={H}, nt={nt}, resident {nb} bytes")
+    log("overlap stderr: " + " | ".join(stderr))
+    if len(prof_t0) == 2:
+        pw = prof_t0[1] - prof_t0[0]
+        log(f"overlap round {OV_PROFILED_ROUND} (find through final checks, "
+            f"the next round's prep on the worker) under torch.profiler: "
+            f"wall {pw * 1e3:.3f} ms; {device_busy(prof.events(), pw)}")
+        report_ranges(prof, OV_RANGES, PROFILE_OV_OUT)
+    log(f"overlap round 1's {len(calls)} chain launches against the plain "
+        f"version:")
+    errs = check_recorded(calls)
+    if rounds != OV_STDERR:
+        raise SystemExit("overlap's per-round stderr differs from the JAX "
+                         "package's recorded run")
+    if n_paf != OV_PAF_LINES:
+        raise SystemExit(f"overlap gave {n_paf} PAF lines, the JAX package "
+                         f"{OV_PAF_LINES}")
+    if launches <= 0 or not calls:
+        raise SystemExit("the overlap path launched no chain_scan kernel")
+    return launches, errs["chain_scan"]
 
 
 def own_imports() -> set:
@@ -839,22 +1189,29 @@ def main() -> int:
     mapper, reads, map_launches = phase_slice(dev)
     phase_profile(mapper, reads)
     phase_card_vs_cpu(mapper, reads)
+    del mapper, reads
+    chr_launches, chr_err = phase_chromosome(dev)
     correct_records, correct_launches, correct_errs = phase_correct(dev)
     profile_correct(correct_records, dev)
     phase_correct_card_vs_cpu()
+    ov_launches, ov_err = phase_overlap(dev)
     if "jax" in sys.modules:
-        raise SystemExit("the port's map or correct path imported jax")
+        raise SystemExit("the port's map, overlap or correct path imported "
+                         "jax")
     # update_bands runs on no path: in the JAX package the Pallas band
     # kernel is test-only, and its step is the beam kernel's inner loop
-    log(f"launches by path: map chain_scan {map_launches}; correct "
-        f"{correct_launches}")
+    log(f"launches by path: map chain_scan {map_launches}; chromosome map "
+        f"chain_scan {chr_launches}; correct {correct_launches}; overlap "
+        f"chain_scan {ov_launches}")
 
     kernels = [{
         "name": "chain_scan", "route": "cuda",
         "source": "downpore_tpu_torch/csrc/chain_scan.cu",
         "replaces": "downpore_tpu/ops/pallas_chain.py:42",
-        "launches": map_launches + correct_launches["chain_scan"],
-        "max_abs_err": max(max_err, correct_errs["chain_scan"]),
+        "launches": map_launches + chr_launches
+        + correct_launches["chain_scan"] + ov_launches,
+        "max_abs_err": max(max_err, chr_err, correct_errs["chain_scan"],
+                           ov_err),
         "ms": ms, "plain_ms": plain_ms}, {
         "name": "update_bands", "route": "cuda",
         "source": "downpore_tpu_torch/csrc/band_update.cu",

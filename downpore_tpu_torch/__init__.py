@@ -9,8 +9,9 @@ sim, align, cli.framework, utils.kmers, mapping.mapper, overlap,
 consensus) are imported as they are; nothing in this package imports
 ``jax``.
 
-Ported so far: the ``map`` command on the flat retrieval gate, and the
-``correct`` command (overlap rounds and beam consensus).
+Ported so far: the ``map`` command (flat and binned retrieval gates), the
+``overlap`` command, and the ``correct`` command (overlap rounds and beam
+consensus).
 """
 from __future__ import annotations
 

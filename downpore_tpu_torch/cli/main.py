@@ -9,9 +9,11 @@ from downpore_tpu.cli.framework import aligned_print, parse_argv
 
 
 def get_commands():
+    """The ported commands, in the JAX CLI's order."""
     from .correct_command import CorrectCommand
     from .map_command import MapCommand
-    return [MapCommand(), CorrectCommand()]
+    from .overlap_command import OverlapCommand
+    return [MapCommand(), OverlapCommand(), CorrectCommand()]
 
 
 def main(argv=None):

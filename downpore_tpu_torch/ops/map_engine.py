@@ -1,12 +1,15 @@
-"""Device-resident fused mapping engine (torch port of the map half of
-``downpore_tpu/ops/map_engine.py``, flat retrieval gate).
+"""Device-resident fused mapping engine (torch port of
+``downpore_tpu/ops/map_engine.py``: the flat and the binned retrieval
+gates, and the overlapper's half).
 
 Resident state on the engine's device:
 
 * ``membership [H, CP] int8`` — hashed seed-bucket -> chunk matrix,
 * ``t_seeds / t_pos [CP, nt] int32`` — padded per-chunk seed tables,
 * ``usable_dev [UL] int8`` — seeds that carry information (not in every
-  chunk).
+  chunk),
+* binned mode only: ``bin_mem1 [H1, NB]`` / ``bin_mem2 [H, NB] int8`` —
+  seed-bucket -> genome-bin matrices of the two-level gate.
 
 Per batch of query windows, one ``dispatch_packed`` call runs retrieval
 counts and the distinct-seed gate (int8 membership rows gathered and
@@ -15,6 +18,16 @@ builds anchors against the resident chunk tables, runs the chain DP
 (``cuda_chain.chain_scan``, forward and backward) and packs the lean
 top-4 summaries.  ``collect_arrays_many`` brings the rows to the host for
 the mapper's candidate walk.
+
+At ``_BINNED_MIN_C`` chunks or more a ``binned=True`` engine takes the
+two-level gate instead (``_binned_gate``): chunks are permuted into
+genome-position order and cut into bins of ``_BINNED_CB``; level 1 gates
+bins on ``bin_mem``, level 2 counts chunks only inside each query row's
+top-``BB`` passing bins.  The JAX engine re-dispatches with ``BB`` doubled
+until it covers ``n_bin`` (the most passing bins of any row); the port
+reads ``n_bin`` once and runs level 2 at the width that ladder ends on
+(``_bb_final``).  Collected chunk ids are translated back to the index's
+order.
 
 The overlapper's half: ``dispatch_chains`` runs the same retrieval and
 gate on seed-sequence queries, the forward-only aligner-variant chain DP
@@ -27,8 +40,7 @@ fixed pair budget and its 4x escalation (``nonzero`` yields every passing
 pair, which is what the escalated run converges to), batch-size buckets,
 the shape plan that pins compiled shapes across overlap rounds, the
 speculative chain prefetch, combined int16 uploads, async host copies and
-clipped gathers.  The binned gate (>= 1024 chunks) and meshes are not
-ported yet and raise.
+clipped gathers.  Meshes are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -43,9 +55,11 @@ from . import match as match_ops
 from .chain import make_anchors_topk, dp_from_anchors, dp_forward_lean, \
     summarize_dp, compact_indices
 
-# binned-retrieval engagement threshold of the JAX engine: at or above it
-# ``binned=True`` would take the two-level gate, which is not ported
+# binned-retrieval engagement threshold and bin width, the JAX engine's
+# (module-level and read at construction, so tests can patch them to toy
+# scale)
 _BINNED_MIN_C = 1024
+_BINNED_CB = 128
 
 # bound on the [m, R, C] int8 block one retrieval gather materializes
 _GATHER_ELEMS = 1 << 28
@@ -174,9 +188,14 @@ def _build_anchors(mi, ci, q_seeds, q_pos, t_seeds, t_pos,
 
 def _chain_pack_tail(mi, ci, dc, q_seeds, q_pos, base_min, q_len, t_seeds,
                      t_pos, *, k: int, top_k: int, lean: bool):
-    """Chain DP + summary packing over the selected (query, chunk) pairs.
-    Returns ``(head [N, 3] int32 (query row, chunk, distinct count),
-    packed [N, W] int16)``."""
+    """Chain DP + summary packing over the selected (query, chunk) pairs:
+    the shared tail of the flat and binned gates.  Returns ``(head [N, 3]
+    int32 (query row, chunk, distinct count), packed [N, W] int16)``."""
+    if mi.numel() == 0:
+        W = (1 + 7 * top_k) if lean else (5 + 8 * top_k)
+        dev = q_seeds.device
+        return (torch.empty((0, 3), dtype=torch.int32, device=dev),
+                torch.empty((0, W), dtype=torch.int16, device=dev))
     anchors = _build_anchors(mi, ci, q_seeds, q_pos, t_seeds, t_pos)
     out = dp_from_anchors(anchors, k)
     packed = summarize_dp(out, base_min[mi], q_len[mi], k, top_k,
@@ -198,14 +217,9 @@ def _map_from_counts(counts, dcounts, q_seeds, q_pos, min_count, base_min,
     C = counts.shape[1]
     ok = (counts >= min_count[:, None]) & (dcounts >= base_min[:, None]) \
         & (min_count[:, None] > 0)
-    sel, n_ok = compact_indices(ok.reshape(-1))
+    sel, _ = compact_indices(ok.reshape(-1))
     mi = torch.div(sel, C, rounding_mode="floor")
     ci = sel % C
-    if n_ok == 0:
-        W = (1 + 7 * top_k) if lean else (5 + 8 * top_k)
-        dev = counts.device
-        return (torch.empty((0, 3), dtype=torch.int32, device=dev),
-                torch.empty((0, W), dtype=torch.int16, device=dev))
     dc = dcounts[mi, ci]
     return _chain_pack_tail(mi, ci, dc, q_seeds, q_pos, base_min, q_len,
                             t_seeds, t_pos, k=k, top_k=top_k, lean=lean)
@@ -235,6 +249,157 @@ def _fused_map_d(q_pos, min_count, base_min, q_len, q_seeds, usable,
     return _map_from_counts(counts, dcounts, q_seeds, q_pos, min_count,
                             base_min, q_len, t_seeds, t_pos, k=k,
                             top_k=top_k, lean=lean)
+
+
+def _derive_bin_mem(membership, NB: int, CB: int):
+    """Level-1 bin membership ``[H, NB]`` int8: bin b's row is the OR of
+    its ``CB`` chunk columns.  Bins are contiguous ranges of the
+    genome-position-permuted chunk axis, so a bin's count bounds the count
+    of every chunk in it: gating bins at the chunk thresholds keeps
+    recall."""
+    H = membership.shape[0]
+    return membership.reshape(H, NB, CB).any(dim=2).to(torch.int8)
+
+
+def _derive_bin_mem_direct(t_seeds, H1: int, NB: int, CB: int,
+                           hashed1: bool):
+    """Level-1 bin membership ``[H1, NB]`` int8 in its own, wider hash
+    space, scattered straight from the resident chunk seed tables.  The
+    ``[H, CP]`` membership caps ``H`` for memory; the bin matrix is small
+    enough to afford ``H1`` (up to 2^20), where collision noise passes far
+    fewer bins.  Valid only when no chunk's seed list was truncated."""
+    CP, nt = t_seeds.shape
+    dev = t_seeds.device
+    rows = torch.where(t_seeds >= 0, _hash(t_seeds, H1, hashed1),
+                       H1).long()
+    bins = torch.div(torch.arange(CP, device=dev), CB,
+                     rounding_mode="floor")[:, None].expand(CP, nt)
+    mem = torch.zeros((H1 + 1, NB), dtype=torch.int8, device=dev)
+    mem[rows.reshape(-1), bins.reshape(-1)] = 1
+    return mem[:H1].contiguous()
+
+
+def _binned_counts_pair(flat, rb, first, topbin, NB: int, CB: int):
+    """Level-2 fine counts inside each row's selected bins from one
+    membership gather: ``flat [H * NB, CB]`` (the membership reshaped),
+    ``rb [M, R]`` buckets (pad -1), ``first [M, R]`` mask of the slots the
+    distinct count sums (None: no distinct count), ``topbin [M, BB]``
+    selected bins.  Returns ``(counts, dcounts)`` ``[M, BB, CB]`` int32
+    (``dcounts`` None without ``first``).  Each gathered ``[m, R, BB, CB]``
+    block stays under ``_GATHER_ELEMS`` elements."""
+    M, R = rb.shape
+    BB = topbin.shape[1]
+    c = torch.empty((M, BB, CB), dtype=torch.int32, device=flat.device)
+    d = None if first is None else torch.empty_like(c)
+    for sl in _row_chunks(M, R, BB * CB):
+        b = rb[sl]
+        idx = b.clamp(min=0).long()[:, :, None] * NB \
+            + topbin[sl][:, None, :]                          # [m, R, BB]
+        rows = torch.where((b >= 0)[:, :, None, None], flat[idx], 0)
+        c[sl] = rows.sum(dim=1, dtype=torch.int32)
+        if d is not None:
+            d[sl] = torch.where(first[sl][:, :, None, None], rows, 0).sum(
+                dim=1, dtype=torch.int32)
+    return c, d
+
+
+def _bb_final(n_bin: int, BB: int, NB: int) -> int:
+    """The bin-selection width the JAX engine's escalation ends on: ``BB``
+    doubled, capped at ``NB``, until it covers ``n_bin``."""
+    while n_bin > BB:
+        BB = min(NB, BB * 2)
+    return BB
+
+
+def _binned_gate(membership, bin_mem, q_rb, q_db, rb1, db1, min_count,
+                 base_min, *, NB: int, CB: int, BB: int, C: int,
+                 aligned_db: bool):
+    """Two-level retrieval gate: level 1 gates genome bins on ``bin_mem``
+    with the buckets ``rb1``/``db1`` of its hash space, level 2 counts
+    chunks only inside each row's top passing bins.  ``aligned_db`` says
+    ``q_db``/``db1`` share the run arrays' slot layout (the
+    ``_derive_buckets`` form), so one gather serves both counts.
+
+    Returns ``(mi, ci, dc, n_bin, BB)``: the passing (query row, engine
+    chunk, distinct count) triples in (row, bin rank, lane) order, the most
+    passing bins of any row, and the selection width used (``_bb_final``
+    of the starting ``BB``: every passing bin is selected)."""
+    H = membership.shape[0]
+    dev = membership.device
+    if aligned_db:
+        c1, d1 = _count_rows_pair(bin_mem, rb1, db1)
+    else:
+        c1 = _count_rows(bin_mem, rb1)
+        d1 = _count_rows(bin_mem, db1)
+    okb = (c1 >= min_count[:, None]) & (d1 >= base_min[:, None]) \
+        & (min_count[:, None] > 0)
+    n_bin = int(okb.sum(dim=1).max())
+    BB = _bb_final(n_bin, BB, NB)
+    # top-BB bins by run count, ties to the lower bin (jax.lax.top_k's
+    # order): a stable descending sort, not torch.topk
+    key = torch.where(okb, c1, -1)
+    topbin = torch.sort(key, dim=1, descending=True,
+                        stable=True).indices[:, :BB]
+    sel_live = torch.gather(okb, 1, topbin)
+    flat = membership.reshape(H * NB, CB)
+    if aligned_db:
+        c2, d2 = _binned_counts_pair(flat, q_rb, q_db >= 0, topbin, NB, CB)
+    else:
+        c2, _ = _binned_counts_pair(flat, q_rb, None, topbin, NB, CB)
+        d2, _ = _binned_counts_pair(flat, q_db, None, topbin, NB, CB)
+    ci_all = topbin[:, :, None] * CB \
+        + torch.arange(CB, device=dev)[None, None, :]        # [M, BB, CB]
+    okf = (c2 >= min_count[:, None, None]) \
+        & (d2 >= base_min[:, None, None]) \
+        & (min_count[:, None, None] > 0) \
+        & sel_live[:, :, None] & (ci_all < C)
+    sel, _ = compact_indices(okf.reshape(-1))
+    mi = torch.div(sel, BB * CB, rounding_mode="floor")
+    rem = sel % (BB * CB)
+    s_idx = torch.div(rem, CB, rounding_mode="floor")
+    w = rem % CB
+    ci = topbin[mi, s_idx] * CB + w
+    dc = d2[mi, s_idx, w]
+    return mi, ci, dc, n_bin, BB
+
+
+def _fused_map_bd(q_pos, min_count, base_min, q_len, q_seeds, usable,
+                  membership, bin_mem, t_seeds, t_pos, *, k: int,
+                  top_k: int = 4, hashed: bool = False,
+                  hashed1: bool = False, lean: bool = False, NB: int,
+                  CB: int, BB: int, C: int):
+    """``_fused_map_d`` with the two-level binned gate: buckets derived on
+    the device, in the bin matrix's hash space too when it differs.
+    Returns ``((head, packed16), n_bin, BB)``."""
+    H = membership.shape[0]
+    H1 = bin_mem.shape[0]
+    q_rb, q_db = _derive_buckets(q_seeds, usable, H, hashed)
+    if H1 == H and hashed1 == hashed:
+        rb1, db1 = q_rb, q_db
+    else:
+        rb1, db1 = _derive_buckets(q_seeds, usable, H1, hashed1)
+    mi, ci, dc, n_bin, BB = _binned_gate(
+        membership, bin_mem, q_rb, q_db, rb1, db1, min_count, base_min,
+        NB=NB, CB=CB, BB=BB, C=C, aligned_db=True)
+    return (_chain_pack_tail(mi, ci, dc, q_seeds, q_pos, base_min, q_len,
+                             t_seeds, t_pos, k=k, top_k=top_k, lean=lean),
+            n_bin, BB)
+
+
+def _fused_map_bc(q_pos, q_rb, q_db, min_count, base_min, q_len, q_seeds,
+                  membership, bin_mem, t_seeds, t_pos, *, k: int,
+                  top_k: int = 4, lean: bool = False, NB: int, CB: int,
+                  BB: int, C: int):
+    """``_fused_map_c`` (buckets shipped from the host) with the two-level
+    binned gate.  The shipped buckets live in the membership's hash space,
+    so level 1 uses the H-space bin matrix.  Returns ``((head,
+    packed16), n_bin, BB)``."""
+    mi, ci, dc, n_bin, BB = _binned_gate(
+        membership, bin_mem, q_rb, q_db, q_rb, q_db, min_count, base_min,
+        NB=NB, CB=CB, BB=BB, C=C, aligned_db=False)
+    return (_chain_pack_tail(mi, ci, dc, q_seeds, q_pos, base_min, q_len,
+                             t_seeds, t_pos, k=k, top_k=top_k, lean=lean),
+            n_bin, BB)
 
 
 def _slice_chains(head, cq, ct, B: int, Lb: int):
@@ -330,11 +495,13 @@ def _fused_overlap_d(q_pos, min_count, base_min, q_seeds, usable,
 
 class MapEngine:
     """Resident device index + one-dispatch query pipelines for the mapper
-    (flat gate) and the overlapper.  ``routes`` counts the dispatches per
-    fused path."""
+    (flat or binned gate) and the overlapper.  ``routes`` counts the
+    dispatches per fused path, ``bins`` the binned dispatches per
+    ``(n_bin, BB)``."""
 
     STATE_KEYS = ("membership", "t_seeds", "t_pos", "usable_dev",
                   "chunk_off", "chunk_inset", "chunk_len")
+    BINNED_STATE_KEYS = ("bin_mem1", "bin_mem2")
 
     def __init__(self, index, k: int, nq: int = 64, nt: int = 320,
                  mesh=None, hit_fraction: float = 0.25,
@@ -352,20 +519,32 @@ class MapEngine:
         self.nt = nt
         self.hit_fraction = hit_fraction
         self.routes = Counter()
+        self.bins = Counter()
         S = index.num_seeds
         self.H = match_ops.choose_hash_size(S)
         self.num_seeds = S
         C = index.num_sequences
         self.C = C
-        if binned and C >= _BINNED_MIN_C:
-            raise NotImplementedError(
-                f"{C} chunks engage the binned retrieval gate (>= "
-                f"{_BINNED_MIN_C}), which is not ported yet: ROADMAP.md, "
-                "'The binned gate'")
         # the JAX engine's chunk-axis padding, kept so that the resident
         # state (and chunk ids) equal the reference engine's
         _grid = 128 if C <= 2048 else (1024 if C <= 16384 else 4096)
         CP = max(128, ((C + _grid - 1) // _grid) * _grid)
+        # two-level binned retrieval at genome scale: chunks permuted into
+        # genome-position order so that bins are contiguous ranges of the
+        # engine's chunk axis
+        self._binned = bool(binned) and C >= _BINNED_MIN_C
+        self._perm = None
+        if self._binned:
+            self._CB = _BINNED_CB
+            self._NB = CP // self._CB          # CP is a multiple of CB
+            self._BB = min(8, self._NB)
+            # stable: equal offsets keep their reference walk order
+            order = np.argsort(
+                np.fromiter((s.offset for s in index.sequences), np.int64,
+                            C), kind="stable").astype(np.int32)
+            self._perm = order         # engine position -> index chunk id
+            self._pos_of = np.empty(C, np.int32)
+            self._pos_of[order] = np.arange(C, dtype=np.int32)
         derive_mem = max((s.num_seeds for s in index.sequences),
                          default=0) <= nt
         mem = None if derive_mem else np.zeros((self.H, CP), dtype=np.int8)
@@ -376,12 +555,15 @@ class MapEngine:
         self.chunk_inset = np.zeros(CP, np.int64)
         self.chunk_len = np.zeros(CP, np.int64)
         for ci_, s in enumerate(index.sequences):
+            # device tables in engine (permuted) order, chunk geometry in
+            # the index's order: collectors translate ids back
+            p = int(self._pos_of[ci_]) if self._binned else ci_
             if mem is not None and s.seeds.size:
                 mem[match_ops.hash_ids(np.unique(s.seeds), S, self.H),
-                    ci_] = 1
+                    p] = 1
             m = min(s.num_seeds, nt)
-            t_seeds[ci_, :m] = s.seeds[:m]
-            t_pos[ci_, :m] = s.seed_positions(k)[:m]
+            t_seeds[p, :m] = s.seeds[:m]
+            t_pos[p, :m] = s.seed_positions(k)[:m]
             self.chunk_off[ci_] = s.offset
             self.chunk_inset[ci_] = s.inset
             self.chunk_len[ci_] = s.length
@@ -397,6 +579,25 @@ class MapEngine:
             # truncated chunk(s): ship the exact matrix bit-packed
             packed = torch.from_numpy(np.packbits(mem, axis=1)).to(dev)
             self.membership = _unpack_membership(packed, mem.shape[1])
+        if self._binned:
+            NB, CB = self._NB, self._CB
+            if derive_mem:
+                # complete chunk tables: the level-1 matrix in its own,
+                # wider hash space H1
+                self.H1 = match_ops.choose_hash_size(S, max_h=1 << 20)
+                self._hashed1 = S > self.H1
+                self.bin_mem1 = _derive_bin_mem_direct(
+                    self.t_seeds, self.H1, NB, CB, self._hashed1)
+                self.bin_mem2 = (
+                    self.bin_mem1
+                    if self.H1 == self.H and self._hashed1 == self._hashed
+                    else _derive_bin_mem(self.membership, NB, CB))
+            else:
+                # truncated chunk(s): bins from the exact membership
+                self.H1 = self.H
+                self._hashed1 = self._hashed
+                self.bin_mem1 = self.bin_mem2 = _derive_bin_mem(
+                    self.membership, NB, CB)
         # "usable" per Matches: seeds present in every chunk carry no info
         if index._seed_counts is None:
             index.index_sequences()
@@ -409,10 +610,13 @@ class MapEngine:
 
     def load_state(self, arrays: dict):
         """Install resident state taken from a JAX ``downpore_tpu``
-        MapEngine (``np.asarray`` of each ``STATE_KEYS`` field) on this
-        engine's device.  Shapes must match the ones this engine built
-        from its index."""
-        for key in self.STATE_KEYS:
+        MapEngine (``np.asarray`` of each ``STATE_KEYS`` field, and of each
+        ``BINNED_STATE_KEYS`` field in binned mode) on this engine's
+        device.  Shapes must match the ones this engine built from its
+        index."""
+        keys = self.STATE_KEYS + (self.BINNED_STATE_KEYS if self._binned
+                                  else ())
+        for key in keys:
             if key not in arrays:
                 raise KeyError(f"load_state: missing {key!r}")
             cur = getattr(self, key)
@@ -588,8 +792,23 @@ class MapEngine:
         # extracted seed of every row fits the shipped width
         num_seeds_arr = packed[6] if len(packed) > 6 else None
         nq = q_seeds.shape[1]
-        if (num_seeds_arr is not None
-                and int(np.max(num_seeds_arr, initial=0)) <= nq):
+        derive = (num_seeds_arr is not None
+                  and int(np.max(num_seeds_arr, initial=0)) <= nq)
+        if self._binned:
+            gate = dict(NB=self._NB, CB=self._CB, BB=self._BB, C=self.C)
+            if derive:
+                self.routes["_fused_map_bd"] += 1
+                res, n_bin, BB = _fused_map_bd(
+                    usable=self.usable_dev, bin_mem=self.bin_mem1,
+                    hashed=self._hashed, hashed1=self._hashed1, **gate,
+                    **args)
+            else:
+                self.routes["_fused_map_bc"] += 1
+                res, n_bin, BB = _fused_map_bc(
+                    q_rb=put(q_rb), q_db=put(q_db), bin_mem=self.bin_mem2,
+                    **gate, **args)
+            self.bins[(n_bin, BB)] += 1
+        elif derive:
             self.routes["_fused_map_d"] += 1
             res = _fused_map_d(usable=self.usable_dev, hashed=self._hashed,
                                **args)
@@ -602,15 +821,21 @@ class MapEngine:
         """Host arrays of several dispatches: per dispatch ``(head [N, 3]
         int32 (query row, chunk, distinct count), summary [N, W] int32)``
         ordered query-major / chunk-ascending (the reference's candidate
-        walk order), or None for an empty dispatch."""
+        walk order), or None for an empty dispatch.  Binned engines'
+        chunk ids are translated from engine to index order and the rows
+        sorted again."""
         out = []
         for _, res in futs_list:
             if res is None:
                 out.append(None)
                 continue
-            head, packed = res
-            out.append((head.cpu().numpy(),
-                        packed.cpu().numpy().astype(np.int32)))
+            head, packed = (res[0].cpu().numpy(),
+                            res[1].cpu().numpy().astype(np.int32))
+            if self._perm is not None:
+                head[:, 1] = self._perm[head[:, 1]]
+                order = np.lexsort((head[:, 1], head[:, 0]))
+                head, packed = head[order], packed[order]
+            out.append((head, packed))
         return out
 
     # -- host-side seed-query packing (overlapper) -----------------------

@@ -127,6 +127,48 @@ def test_map_batch_on_card_matches_cpu(cuda_device):
     assert sum(1 for ms in got if ms) >= 22
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shipped", [False, True], ids=["bd", "bc"])
+def test_binned_dispatch_on_card_matches_cpu(cuda_device, monkeypatch,
+                                             shipped):
+    """A toy binned engine (16-chunk threshold, bins of 8) on the card and
+    on the CPU: equal collected (head, summary) on both binned routes."""
+    from downpore_tpu_torch.core import Sequence
+    from downpore_tpu_torch.mapping import Mapper
+    from downpore_tpu_torch.ops import map_engine
+    from downpore_tpu_torch.utils import kmer_occurrences, score_seed_values
+
+    monkeypatch.setattr(map_engine, "_BINNED_MIN_C", 16)
+    monkeypatch.setattr(map_engine, "_BINNED_CB", 8)
+    rng = np.random.default_rng(31)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    text = bases[rng.integers(0, 4, 120_000)].tobytes().decode()
+    genome = Sequence.from_string(text, id=0, name="ref")
+    values = score_seed_values(kmer_occurrences([genome], 11), 11)
+    args = (genome, False, 11, values, 40, 1000, 2000)
+    engines = [Mapper(*args, device=d).engine for d in (cuda_device, "cpu")]
+    windows = []
+    for i in range(16):
+        p = int(rng.integers(0, 115_000))
+        windows.append(genome.subsequence(p, p + 1000))
+    route = "_fused_map_bc" if shipped else "_fused_map_bd"
+    out = []
+    for eng in engines:
+        assert eng._binned
+        packed = eng.pack_query_windows(windows)
+        base_min = np.maximum(5, packed[6] // 5).astype(np.int32)
+        if shipped:
+            packed = packed[:6]
+        eng.routes.clear()
+        out.append(eng.collect_arrays_many(
+            [eng.dispatch_packed(packed, base_min)])[0])
+        assert dict(eng.routes) == {route: 1}
+    (h_g, p_g), (h_c, p_c) = out
+    assert h_g.shape[0] >= 16
+    np.testing.assert_array_equal(h_g, h_c)
+    np.testing.assert_array_equal(p_g, p_c)
+
+
 def test_build_tag_covers_included_headers(tmp_path):
     """An edited header changes the build tag of every source that
     includes it, directly or through another header."""

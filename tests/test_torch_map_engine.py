@@ -202,10 +202,25 @@ def test_pack_query_windows_matches_jax(mappers, monkeypatch):
         np.testing.assert_array_equal(r, p)
 
 
-def test_binned_scale_and_mesh_raise(mappers, monkeypatch):
+def test_mesh_raises(mappers):
     _, jm, _ = mappers
-    monkeypatch.setattr(tme, "_BINNED_MIN_C", 4)
-    with pytest.raises(NotImplementedError, match="binned"):
-        tme.MapEngine(jm.index, K, binned=True, device=CPU)
     with pytest.raises(NotImplementedError, match="Multi-GPU"):
         tme.MapEngine(jm.index, K, mesh=object(), device=CPU)
+
+
+def test_binned_construction_at_patched_thresholds(mappers, monkeypatch):
+    """With the thresholds lowered under the fixture's 6 chunks, a
+    ``binned=True`` engine builds the two-level gate's state as the JAX
+    engine does; ``binned=False`` stays flat."""
+    _, jm, _ = mappers
+    for mod in (jme, tme):
+        monkeypatch.setattr(mod, "_BINNED_MIN_C", 4)
+        monkeypatch.setattr(mod, "_BINNED_CB", 8)
+    ref = jme.MapEngine(jm.index, K, lean=True, binned=True)
+    got = tme.MapEngine(jm.index, K, lean=True, binned=True, device=CPU)
+    assert got._binned and (got._NB, got._CB, got._BB) == (16, 8, 8)
+    np.testing.assert_array_equal(ref._perm, got._perm)
+    for key in tme.MapEngine.BINNED_STATE_KEYS + ("membership", "t_seeds"):
+        np.testing.assert_array_equal(np.asarray(getattr(ref, key)),
+                                      getattr(got, key).numpy(), err_msg=key)
+    assert not tme.MapEngine(jm.index, K, device=CPU)._binned
