@@ -622,10 +622,11 @@ def write_model(path: str, k: int = 5):
             f.write(f"{km}\t{rng.uniform(60.0, 120.0):.3f}\n")
 
 
-def run_correct(records, device: str, model: bool = False):
+def run_correct(records, device: str, model: bool = False,
+                trim: bool = False):
     """``correct -input reads.fa`` through the port's CLI on ``device``
-    (with ``-model`` and a ``write_model`` file when ``model``); returns
-    (stdout, stderr)."""
+    (with ``-model`` and a ``write_model`` file when ``model``, with
+    ``-trim 1`` when ``trim``); returns (stdout, stderr)."""
     import io
     import tempfile
     from downpore_tpu_torch.cli.main import main as cli_main
@@ -638,6 +639,8 @@ def run_correct(records, device: str, model: bool = False):
         if model:
             argv += ["-model", os.path.join(d, "model.txt")]
             write_model(argv[-1])
+        if trim:
+            argv += ["-trim", "1"]
         with contextlib.redirect_stdout(out), \
                 contextlib.redirect_stderr(err):
             cli_main(argv)
@@ -846,6 +849,38 @@ def phase_correct_card_vs_cpu():
         if not same or not on_card.count(">") or launched <= 0:
             raise SystemExit("correct fasta on the card differs from the "
                              "CPU's")
+    # -trim 1 (bundled adapters, k = 5) on the same reads with the first
+    # bundled front and back adapters at their ends: the trim cuts them
+    # and the trimmed reads go on to the overlap rounds and the beam
+    from downpore_tpu_torch.ops import cuda_chain
+    from downpore_tpu_torch.trim import BACK_ADAPTERS, FRONT_ADAPTERS
+    records = adapter_records(records, FRONT_ADAPTERS[0][1],
+                              BACK_ADAPTERS[0][1])
+    chain0 = cuda_chain.chain_scan.launches
+    beam0 = cuda_beam.beam_consensus.launches
+    on_card = run_correct(records, "cuda", trim=True)
+    chains = cuda_chain.chain_scan.launches - chain0
+    beams = cuda_beam.beam_consensus.launches - beam0
+    on_cpu = run_correct(records, "cpu", trim=True)
+    same = on_card == on_cpu
+    log(f"correct -trim 1 card vs cpu on the {len(records)}-read fixture "
+        f"with adapters: {on_card[0].count('>')} / {on_cpu[0].count('>')} "
+        f"consensus sequences, {chains} chain and {beams} beam kernel "
+        f"launches, fasta and stderr byte-identical: {same}; stderr: "
+        + " | ".join(ln for ln in on_card[1].splitlines()
+                     if not ln.startswith(("Front adapter:",
+                                           "Back adapter:"))))
+    if not same or "Trimming ends" not in on_card[1]:
+        raise SystemExit("correct -trim 1 on the card differs from the "
+                         "CPU's")
+    if not on_card[0].count(">") or chains <= 0 or beams <= 0:
+        raise SystemExit("correct -trim 1 gave no consensus or launched "
+                         "no chain_scan or beam_consensus kernel")
+
+
+def adapter_records(records, front: str, back: str):
+    """``records`` with ``front`` before and ``back`` after each read."""
+    return [(n, front + s + back) for n, s in records]
 
 
 CHR_GENOME = 64_000_000
@@ -1146,6 +1181,320 @@ def phase_overlap(dev):
     return launches, errs["chain_scan"]
 
 
+TRIM_READS = 65_536
+TRIM_CORE = 3000
+TRIM_NOISE = 0.02
+TRIM_CHIMERA_EVERY = 16
+TRIM_EDGE_BATCH = 8192
+TRIM_RECORDED = 2          # launches per stage held against the plain scan
+TRIM_CARD_VS_CPU = 1024
+TRIM_SPLIT_MIN = 0.95
+PROFILE_TRIM_OUT = "chiprun_out/profile_trim.txt"
+TRIM_RANGES = (
+    ("downpore_tpu_torch.ops.window_engine", "_unpack_kmers",
+     "dev:unpack_kmers"),
+    ("downpore_tpu_torch.ops.window_engine", "_gate_topk_pairs",
+     "dev:gate_topk_pairs"),
+    ("downpore_tpu_torch.ops.window_engine", "_passing", "dev:passing"),
+    ("downpore_tpu_torch.ops.window_engine", "_anchors_chunked",
+     "dev:anchors_chunked"),
+    ("downpore_tpu_torch.ops.window_engine", "dp_from_anchors",
+     "dev:dp_from_anchors"),
+    ("downpore_tpu_torch.ops.window_engine", "summarize_scalars",
+     "dev:summarize_scalars"),
+    ("downpore_tpu_torch.ops.window_engine", "_pack_windows",
+     "host:pack_windows"),
+    ("downpore_tpu_torch.trim.trimmer:Trimmer", "_dispatch_edge_batch",
+     "host:dispatch_edge_batch"),
+    ("downpore_tpu_torch.trim.trimmer:Trimmer", "_finish_edge_batch",
+     "host:finish_edge_batch"),
+    ("downpore_tpu_torch.trim.trimmer:_MidStream", "add_batch",
+     "host:mid_add_batch"),
+    ("downpore_tpu_torch.trim.trimmer:_MidStream", "_collect",
+     "host:mid_collect"),
+)
+# test_trim_golden.py's recorded digest of the JAX package's output
+TRIM_GOLDEN_DIGEST = \
+    "b7ef415758ba165151d66f047f59093b027d5e2299db656ac5ad23266ca27399"
+
+
+def write_trim_reads(path: str) -> tuple:
+    """TRIM_READS reads in bench.py's ``_make_reads_bulk`` recipe:
+    FRONT_ADAPTERS[0] + a
+    TRIM_CORE-base random core + BACK_ADAPTERS[0], TRIM_NOISE substitutions
+    on the adapters, as fastq.  Every TRIM_CHIMERA_EVERY-th read also
+    carries FRONT_ADAPTERS[0] over core bases [p, p + 28) for a random p in
+    [1000, 2000): a chimera the middle pass must split.  Returns (bytes
+    written, chimeras planted)."""
+    from downpore_tpu_torch.trim import BACK_ADAPTERS, FRONT_ADAPTERS
+    rng = np.random.default_rng(SEED + 77)
+    f_ad = np.frombuffer(FRONT_ADAPTERS[0][1].encode(), np.uint8)
+    b_ad = np.frombuffer(BACK_ADAPTERS[0][1].encode(), np.uint8)
+    qual = "I" * (TRIM_CORE + len(f_ad) + len(b_ad))
+    B, planted = 4096, 0
+    with open(path, "w", buffering=1 << 22) as f:
+        for lo in range(0, TRIM_READS, B):
+            n = min(B, TRIM_READS - lo)
+            cores = BASES[rng.integers(0, 4, (n, TRIM_CORE))]
+            fa = np.broadcast_to(f_ad, (n, len(f_ad))).copy()
+            ba = np.broadcast_to(b_ad, (n, len(b_ad))).copy()
+            for arr in (fa, ba):
+                m = rng.random(arr.shape) < TRIM_NOISE
+                arr[m] = BASES[rng.integers(0, 4, int(m.sum()))]
+            for i in range(-lo % TRIM_CHIMERA_EVERY, n, TRIM_CHIMERA_EVERY):
+                p = int(rng.integers(1000, 2000))
+                cores[i, p:p + len(f_ad)] = f_ad
+                planted += 1
+            rows = np.concatenate([fa, cores, ba], axis=1)
+            f.write("".join(f"@gr{lo + i}\n{rows[i].tobytes().decode()}\n+\n"
+                            f"{qual}\n" for i in range(n)))
+    return os.path.getsize(path), planted
+
+
+def run_trim(path: str, device: str, out_path: str) -> str:
+    """``trim -input path`` through the port's CLI on ``device`` with
+    default flags and edge batches of TRIM_EDGE_BATCH reads (bench.py's
+    trim batch), stdout to ``out_path``; returns stderr."""
+    import functools
+    import io
+    from downpore_tpu_torch.cli.main import main as cli_main
+    from downpore_tpu_torch.trim.trimmer import Trimmer
+    err = io.StringIO()
+    trim = functools.partialmethod(Trimmer.trim, batch_size=TRIM_EDGE_BATCH)
+    with device_env(device), patched([(Trimmer, "trim", trim)]), \
+            open(out_path, "w", buffering=1 << 22) as out, \
+            contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        cli_main(["trim", "-input", path])
+    return err.getvalue()
+
+
+def phase_trim(dev):
+    """``trim`` through the port's CLI on TRIM_READS reads with the bundled
+    adapters (k = 6, 256-base edges in batches of TRIM_EDGE_BATCH, 512-base
+    middle windows in batches of 16,384): wall and MB/s, the wall split by
+    stage, chain launches per stage (each > 0; the first TRIM_RECORDED of
+    each held against the plain scan), peak device memory, the chimeras
+    split.  Then one edge and one middle batch under ``torch.profiler``
+    (PROFILE_TRIM_OUT), card-vs-CPU fastq identity on the first
+    TRIM_CARD_VS_CPU reads, and the golden digest on the card.  Returns
+    the chain launches of the run and the max abs error of the recorded
+    ones."""
+    import tempfile
+    import threading
+    from collections import Counter
+    from downpore_tpu_torch.io import SequenceSet
+    from downpore_tpu_torch.ops import cuda_chain
+    from downpore_tpu_torch.ops import window_engine as we
+    from downpore_tpu_torch.trim.trimmer import Trimmer, _MidStream
+
+    where = threading.local()      # the stage the calling thread is in
+    per_stage, recorded, calls = Counter(), Counter(), []
+    launch = cuda_chain._launch
+
+    def staged_launch(*a):
+        # _launch launches the kernel (and counts it) unless P or A is 0
+        if not a[0].numel():
+            return launch(*a)
+        stage = getattr(where, "stage", "other")
+        per_stage[stage] += 1
+        if recorded[stage] < TRIM_RECORDED:
+            recorded[stage] += 1
+            return recording(launch, cuda_chain.chain_scan_plain, calls)(*a)
+        return launch(*a)
+
+    def staged(fn, stage):
+        def wrapper(*a, **kw):
+            prev = getattr(where, "stage", None)
+            where.stage = stage
+            try:
+                return fn(*a, **kw)
+            finally:
+                where.stage = prev
+        return wrapper
+
+    spent = Counter()
+    subs = [(cuda_chain, "_launch", staged_launch)]
+    subs += [(we, n, staged(getattr(we, n), stage)) for n, stage in (
+        ("_fused_enable", "determine"), ("_fused_edge_verdict", "edges"),
+        ("_fused_window_verdict", "middle"))]
+    subs += [(owner, n, timed(getattr(owner, n), key, spent, dev))
+             for owner, n, key in (
+                 (Trimmer, "determine_adapters", "determine"),
+                 (Trimmer, "_dispatch_edge_batch", "edges"),
+                 (Trimmer, "_finish_edge_batch", "edges"),
+                 (_MidStream, "add_batch", "mid_add"),
+                 (_MidStream, "finish", "mid_finish"),
+                 (SequenceSet, "write", "write"))]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "reads.fastq")
+        t0 = time.perf_counter()
+        nbytes, planted = write_trim_reads(path)
+        log(f"trim case: {TRIM_READS} reads of {TRIM_CORE} b cores between "
+            f"the first bundled adapters, {planted} chimeras, {nbytes} bytes "
+            f"of fastq, written in {time.perf_counter() - t0:.1f} s")
+        out_path = os.path.join(d, "trimmed.fastq")
+        torch.cuda.reset_peak_memory_stats()
+        with patched(subs):
+            cuda_chain.chain_scan.launches = 0
+            t0 = time.perf_counter()
+            err = run_trim(path, dev.type, out_path)
+            sync(dev)
+            wall = time.perf_counter() - t0
+            launches = cuda_chain.chain_scan.launches
+        peak = torch.cuda.max_memory_allocated()
+        out_bytes = os.path.getsize(out_path)
+        split = [int(ln.split()[0]) for ln in err.splitlines()
+                 if ln.endswith("sequences require splitting")]
+        rest = wall - spent["determine"] - spent["edges"] \
+            - spent["mid_finish"] - spent["write"]
+        log(f"trim on the card: wall {wall:.3f} s = {nbytes / wall / 1e6:.2f} "
+            f"MB/s of fastq; determine-adapters {spent['determine']:.3f} s + "
+            f"edge pass {spent['edges']:.3f} s + middle-pass finish "
+            f"{spent['mid_finish']:.3f} s + write {spent['write']:.3f} s + "
+            f"the rest {rest:.3f} s (parsing, edge cuts, stream feed); "
+            f"middle-window packing and dispatch on the worker thread "
+            f"{spent['mid_add']:.3f} s, beside the edge pass; chain launches "
+            f"{launches}, by stage {dict(per_stage)}; peak device memory {peak} bytes; "
+            f"{out_bytes} bytes out; split {split} of {planted} chimeras")
+        log("trim stderr: " + " | ".join(
+            ln for ln in err.splitlines() if not ln.startswith(
+                ("Front adapter:", "Back adapter:"))))
+        log(f"trim's first {TRIM_RECORDED} chain launches of each stage "
+            f"against the plain version:")
+        errs = check_recorded(calls)
+        if sum(per_stage.values()) != launches:
+            raise SystemExit(f"trim's launches by stage {dict(per_stage)} "
+                             f"do not add up to the kernel's count "
+                             f"{launches}")
+        for stage in ("determine", "edges", "middle"):
+            if per_stage[stage] <= 0 or recorded[stage] <= 0:
+                raise SystemExit(f"trim's {stage} stage launched no "
+                                 f"chain_scan kernel")
+        if not split or split[0] < TRIM_SPLIT_MIN * planted:
+            raise SystemExit(f"trim split {split} reads of {planted} "
+                             f"planted chimeras")
+        profile_trim(path, dev)
+        trim_card_vs_cpu(path, d)
+    trim_golden(dev)
+    return launches, errs["chain_scan"]
+
+
+def profile_trim(path: str, dev, out_path=PROFILE_TRIM_OUT):
+    """One edge batch (TRIM_EDGE_BATCH reads) and one middle batch (16,384
+    windows) under ``torch.profiler``, with the adapters the CLI run keeps
+    (DetermineAdapters on the first 2048 reads): wall, device busy time
+    and idle share, ranges and tables (``out_path``)."""
+    from torch.profiler import ProfilerActivity, profile
+    from downpore_tpu_torch.io import SequenceSet
+    from downpore_tpu_torch.trim import load_trimmer
+
+    seqs = SequenceSet(path, min_length=50)
+    t = load_trimmer("", "", 6, verbosity=0, device=dev)
+    t.determine_adapters(seqs, 2048, 90)
+    batch = list(seqs.get_n_sequences_from(0, TRIM_EDGE_BATCH))
+    t._finish_edge_batch(seqs, t._dispatch_edge_batch(batch))   # warm-up
+    stream = t._mid_stream(seqs)
+    with ranged(TRIM_RANGES):
+        sync(dev)
+        for name, run in (
+                ("edge batch", lambda: t._finish_edge_batch(
+                    seqs, t._dispatch_edge_batch(batch))),
+                # 6 windows a read: 2730 reads fill 16,380 of one batch
+                ("middle batch", lambda: (stream.add_batch(batch[:2730]),
+                                          stream._dispatch(),
+                                          stream._collect()))):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run()
+                sync(dev)
+                wall = time.perf_counter() - t0
+            evts = prof.events()
+            log(f"trim {name} under torch.profiler: wall {wall * 1e3:.3f} ms; "
+                f"{device_busy(evts, wall)}")
+            top = sorted(prof.key_averages(), key=lambda e: -_device_us(e))
+            log("  top device time: " + "; ".join(
+                f"{e.key} {_device_us(e) / 1e3:.3f} ms x{e.count}"
+                for e in top[:8] if _device_us(e) > 0))
+            report_ranges(prof, TRIM_RANGES,
+                          out_path.replace(".txt", f"_{name.split()[0]}.txt"))
+
+
+def _device_us(evt) -> float:
+    """An averaged profiler event's own device time, in microseconds
+    (``self_device_time_total``, ``self_cuda_time_total`` before torch
+    2.4)."""
+    us = getattr(evt, "self_device_time_total", None)
+    return us if us is not None else evt.self_cuda_time_total
+
+
+def trim_card_vs_cpu(path: str, d: str):
+    """The first TRIM_CARD_VS_CPU reads trimmed on the card and on the CPU
+    (plain versions): byte-identical fastq."""
+    sub = os.path.join(d, "head.fastq")
+    with open(path) as src, open(sub, "w") as dst:
+        for _ in range(4 * TRIM_CARD_VS_CPU):
+            dst.write(src.readline())
+    outs = []
+    for device in ("cuda", "cpu"):
+        out = os.path.join(d, f"head_{device}.fastq")
+        t0 = time.perf_counter()
+        run_trim(sub, device, out)
+        with open(out, "rb") as f:
+            outs.append(f.read())
+        log(f"trim of {TRIM_CARD_VS_CPU} reads on {device}: "
+            f"{time.perf_counter() - t0:.3f} s")
+    same = outs[0] == outs[1]
+    log(f"trim card vs cpu on {TRIM_CARD_VS_CPU} reads: {len(outs[0])} / "
+        f"{len(outs[1])} bytes, byte-identical: {same}")
+    if not same or not outs[0]:
+        raise SystemExit("trim fastq on the card differs from the CPU's")
+
+
+def trim_golden(dev):
+    """test_trim_golden.py's fixture and calls on the card: the output's
+    SHA-256 must be the JAX package's recorded digest."""
+    import hashlib
+    import io
+    import tempfile
+    from downpore_tpu_torch.io import SequenceSet
+    from downpore_tpu_torch.trim import load_trimmer
+    rng = np.random.default_rng(9)
+    letters = "ACGT"
+    front = "AATGTACTTCGTTCAGTTACGTATTGCT"
+    back = "GCAATACGTAACTGAACGAAGT"
+
+    def rb(n):
+        return "".join(letters[i] for i in rng.integers(0, 4, n))
+
+    def mut(s, r=0.08):
+        return "".join(letters[rng.integers(0, 4)] if rng.random() < r
+                       else c for c in s)
+
+    records = []
+    for i in range(30):
+        core = rb(int(rng.integers(600, 1200)))
+        records.append((f"read{i}", mut(front) + core + mut(back)))
+    records.append(("chimera", rb(1500) + front + rb(1600)))
+    records.append(("clean", rb(900)))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "reads.fastq")
+        with open(path, "w") as f:
+            f.writelines(f"@{n}\n{s}\n+\n{'I' * len(s)}\n" for n, s in records)
+        trimmer = load_trimmer("", "", 6, verbosity=0, device=dev)
+        seq_set = SequenceSet(path, min_length=50)
+        trimmer.determine_adapters(seq_set, 10000, 90)
+        trimmer.set_trim_params(85, 5, 50, 1000, True, True, False)
+        trimmer.trim(seq_set)
+        out = io.StringIO()
+        seq_set.write(out, True)
+    digest = hashlib.sha256(out.getvalue().encode()).hexdigest()
+    log(f"trim golden fixture on the card: sha256 {digest}")
+    if digest != TRIM_GOLDEN_DIGEST:
+        raise SystemExit("the golden trim digest differs from the JAX "
+                         "package's")
+
+
 def own_imports() -> set:
     """Top-level names of the modules this script imports itself."""
     import ast
@@ -1195,23 +1544,24 @@ def main() -> int:
     profile_correct(correct_records, dev)
     phase_correct_card_vs_cpu()
     ov_launches, ov_err = phase_overlap(dev)
+    trim_launches, trim_err = phase_trim(dev)
     if "jax" in sys.modules:
-        raise SystemExit("the port's map, overlap or correct path imported "
-                         "jax")
+        raise SystemExit("the port's map, overlap, correct or trim path "
+                         "imported jax")
     # update_bands runs on no path: in the JAX package the Pallas band
     # kernel is test-only, and its step is the beam kernel's inner loop
     log(f"launches by path: map chain_scan {map_launches}; chromosome map "
         f"chain_scan {chr_launches}; correct {correct_launches}; overlap "
-        f"chain_scan {ov_launches}")
+        f"chain_scan {ov_launches}; trim chain_scan {trim_launches}")
 
     kernels = [{
         "name": "chain_scan", "route": "cuda",
         "source": "downpore_tpu_torch/csrc/chain_scan.cu",
         "replaces": "downpore_tpu/ops/pallas_chain.py:42",
         "launches": map_launches + chr_launches
-        + correct_launches["chain_scan"] + ov_launches,
+        + correct_launches["chain_scan"] + ov_launches + trim_launches,
         "max_abs_err": max(max_err, chr_err, correct_errs["chain_scan"],
-                           ov_err),
+                           ov_err, trim_err),
         "ms": ms, "plain_ms": plain_ms}, {
         "name": "update_bands", "route": "cuda",
         "source": "downpore_tpu_torch/csrc/band_update.cu",

@@ -8,8 +8,9 @@ query collation) it reuses.  The overlap rounds run on the port's
 ``Overlapper`` and the consensus on the port's beam scan
 (``-device_consensus true``, the default) or on the host landmark engine
 (``false``).  A failure of the device engine ends the run: there is no
-fallback to the host engine.  ``-data_parallel true`` and ``-trim 1``
-raise until their ports.
+fallback to the host engine.  ``-trim 1`` trims the reads first with the
+port's ``Trimmer`` at k = 5, as the JAX command does.
+``-data_parallel true`` raises until the multi-GPU port.
 """
 from __future__ import annotations
 
@@ -28,14 +29,12 @@ class CorrectCommand(_ref.CorrectCommand):
         from .. import resolve_device
         from ..consensus import build_consensus, build_consensus_bulk
         from ..overlap import QUERY_ALL, Overlapper
+        from ..trim import load_trimmer
         from ..utils import kmer_occurrences, score_seed_values
 
         if parse_bool(args["data_parallel"]):
             raise NotImplementedError(
                 "-data_parallel is not ported yet: ROADMAP.md, 'Multi-GPU'")
-        if args.get("trim") == "1":
-            raise NotImplementedError(
-                "-trim 1 is not ported yet: ROADMAP.md, 'Trim'")
         device = resolve_device()
         overlap_size = parse_int(args["overlap_size"])
         num_seeds = parse_int(args["num_seeds"])
@@ -47,6 +46,11 @@ class CorrectCommand(_ref.CorrectCommand):
 
         seq_set = SequenceSet(args["input"], min_length=overlap_size,
                               cache=parse_bool(args["himem"]))
+        if args.get("trim") == "1":
+            trimmer = load_trimmer(args["front_adapters"],
+                                   args["back_adapters"], 5, device=device)
+            trimmer.trim(seq_set)
+            trimmer.print_stats()
         counts = kmer_occurrences(seq_set.get_sequences(), k)
         values = score_seed_values(counts, k)
 

@@ -118,9 +118,9 @@ def test_help_correct_matches_jax(capsys):
 
 
 def test_correct_cli_rejects_unported_flags(monkeypatch, reads_path):
+    """Only the multi-GPU flag is left unported (``-trim 1`` runs: its
+    parity with the JAX package is in test_torch_trim.py)."""
     monkeypatch.setenv(downpore_tpu_torch.DEVICE_ENV, "cpu")
     with pytest.raises(NotImplementedError, match="Multi-GPU"):
         torch_main(["correct", "-input", reads_path, "-data_parallel",
                     "true"])
-    with pytest.raises(NotImplementedError, match="Trim"):
-        torch_main(["correct", "-input", reads_path, "-trim", "1"])

@@ -169,6 +169,78 @@ def test_binned_dispatch_on_card_matches_cpu(cuda_device, monkeypatch,
     np.testing.assert_array_equal(p_g, p_c)
 
 
+def trim_windows(rng, n, length, adapters):
+    """``n`` windows of ``length`` random bases, every other one with a
+    bundled adapter planted at a random offset."""
+    from downpore_tpu_torch.core import Sequence
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    out = []
+    for i in range(n):
+        s = bases[rng.integers(0, 4, length)].tobytes().decode()
+        if i % 2:
+            ad = adapters[i % len(adapters)][1]
+            at = int(rng.integers(0, length - len(ad)))
+            s = s[:at] + ad + s[at + len(ad):]
+        out.append(Sequence.from_string(s, id=i))
+    return out
+
+
+@pytest.mark.cuda
+def test_trim_engine_on_card_matches_cpu(cuda_device):
+    """The trim engine's edge verdicts of both sides and middle-pass
+    detections on the card and on the CPU (bundled adapters, 96-anchor extend DP)."""
+    from downpore_tpu_torch.trim import BACK_ADAPTERS, FRONT_ADAPTERS
+    from downpore_tpu_torch.trim import load_trimmer
+    from downpore_tpu_torch.ops import window_engine as we
+
+    rng = np.random.default_rng(12)
+    fronts = trim_windows(rng, 256, 150, FRONT_ADAPTERS)
+    backs = trim_windows(rng, 256, 150, BACK_ADAPTERS)
+    mids = trim_windows(rng, 128, 512, FRONT_ADAPTERS)
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        t = load_trimmer("", "", 6, verbosity=0, device=dev)
+        eng = t._engine()
+        assert eng.nq == 48
+        W = t.WINDOW - t.k + 1
+        gmf, cmf = t._edge_mins(t.front_sets)
+        gmb, cmb = t._edge_mins(t.back_sets)
+        before = cuda_chain.chain_scan.launches
+        edges = eng.edge_verdict_collect(eng.edge_verdict_dispatch(
+            fronts, True, gmf, cmf, W), len(gmf)) \
+            + eng.edge_verdict_collect(eng.edge_verdict_dispatch(
+                backs, False, gmb, cmb, W), len(gmb))
+        mm = t._mid_min_matches()
+        p, lens = we._pack_windows(mids, 512 - t.k + 1, t.k)
+        dets = eng.window_verdict_collect(eng.window_verdict_dispatch_packed(
+            [eng.upload_rows(p, lens, len(mids)) + (0,)], mm, mm,
+            t.mid_threshold, 512 - t.k + 1))
+        launched = cuda_chain.chain_scan.launches - before
+        assert launched > 0 if dev.type == "cuda" else launched == 0
+        out.append((edges, dets))
+    (e_g, d_g), (e_c, d_c) = out
+    for g, c in zip(e_g, e_c):
+        np.testing.assert_array_equal(g, c)
+    np.testing.assert_array_equal(d_g, d_c)
+    assert e_g[0][:, 0].sum() >= 100 and len(d_g) >= 50
+
+
+@pytest.mark.cuda
+def test_chain_scan_kernel_at_the_trim_shape(cuda_device):
+    """A = 96 (2 x nq for the bundled adapters), extend variant, forward
+    and backward inputs."""
+    rng = np.random.default_rng(96)
+    arrs = [a.to(cuda_device) for a in anchor_batch(rng, 2048, 96)]
+    for ins in (arrs, [torch.flip(-a, dims=(1,)) for a in arrs[:4]]
+                + [torch.flip(arrs[4], dims=(1,))]):
+        ins = [a.contiguous() for a in ins]
+        got = cuda_chain.chain_scan(*ins, 6, "extend")
+        ref = cuda_chain.chain_scan_plain(*ins, 6, "extend")
+        torch.cuda.synchronize()
+        for name, r, g in zip(SCAN_NAMES, ref, got):
+            assert torch.equal(r, g), name
+
+
 def test_build_tag_covers_included_headers(tmp_path):
     """An edited header changes the build tag of every source that
     includes it, directly or through another header."""

@@ -172,24 +172,31 @@ def test_map_without_jax_subprocess(capsys, monkeypatch, cli_fixture,
     """The port runs with jax blocked from import: sys.modules["jax"] =
     None makes any ``import jax`` raise.  One process runs ``map``, then
     ``overlap`` and ``correct`` (on the first 24 reads of
-    test_torch_correct.py's overlap fixture)."""
+    test_torch_correct.py's overlap fixture) and ``trim`` (on
+    test_trim_golden.py's fixture)."""
     from test_torch_correct import overlap_records
+    from test_torch_trim import golden_records, write_reads
     reads = tmp_path / "correct.fasta"
     reads.write_text("".join(f">{n}\n{s}\n"
                              for n, s in overlap_records()[:24]))
     overlap = ["overlap", "-input", str(reads)]
     correct = ["correct", "-input", str(reads)]
+    trim = ["trim", "-input", write_reads(tmp_path / "trim.fastq",
+                                          golden_records(), fastq=True)]
     monkeypatch.setenv(downpore_tpu_torch.DEVICE_ENV, "cpu")
     torch_main(cli_fixture)
     torch_main(overlap)
     torch_main(correct)
+    torch_main(trim)
     expect = capsys.readouterr().out
     assert expect.count("_corrected") >= 1
     assert expect.count("\t255\n") > 24
+    assert "\n@chimera_(left)\n" in expect
     code = ("import sys; sys.modules['jax'] = None; "
             "import torch; torch.set_num_threads(2); "
             "from downpore_tpu_torch.cli.main import main; "
             f"main({cli_fixture!r}); main({overlap!r}); main({correct!r}); "
+            f"main({trim!r}); "
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "for m, v in sys.modules.items() if v is not None)")
     env = dict(os.environ, DOWNPORE_TORCH_DEVICE="cpu",
