@@ -5,14 +5,21 @@
 Phases (any failure ends the run with a non-zero exit):
 
 1. device: the card's name and power limit (nvidia-smi), CUDA version,
-   and the build of the three kernels from ``downpore_tpu_torch/csrc``
-   (one nvcc per source, all started together);
+   the build of the three kernels from ``downpore_tpu_torch/csrc`` (one
+   nvcc per source, all started together), and the port's native host
+   library (``downpore_tpu_torch/native/seqscan.cpp``), which must load;
 2. kernels vs plain versions, on card tensors, each timed against its
-   plain version:
-   ``cuda_chain.chain_scan`` must equal
-   ``chain_scan_plain`` on the same card tensors exactly, P = 4096 pairs at
-   A in {64, 128, 384}, both gap-window variants, plus the backward pass's
-   negated coordinates; both are timed at P = 4096, A = 128;
+   plain version and its bound (the larger of its int32 operations over
+   132 SMs x 64 INT32 lanes x 1.98 GHz and its bytes over 3.35 TB/s):
+   the chain kernel's three entry points ``cuda_chain.chain_scan``,
+   ``chain_scan_fb`` (forward and backward in one launch) and
+   ``chain_scan_lean`` must equal ``chain_scan_plain`` exactly at P = 512,
+   A in {64, 96, 128, 256, 384} (register forms) and 640 (the
+   shared-memory form), both gap-window variants; then the kernel alone
+   (its C entry point, preallocated outputs) is timed at the path shapes
+   (``CHAIN_SHAPES``: P = 4096, A = 128 for continuity with earlier
+   measurements, map, overlap and trim), each beside its bound, and per
+   1,000 pairs over a sweep of P (``CHAIN_SWEEP_P``, A = 128);
    ``cuda_band.update_bands`` must equal ``update_bands_plain`` at
    B = 65,536 bands x 32 (test_align.py's recipe);
    ``cuda_beam.beam_consensus`` must equal ``beam_consensus_plain`` on
@@ -65,11 +72,13 @@ Phases (any failure ends the run with a non-zero exit):
    round; the first round's chain launches held against the plain version;
    device busy time and idle share of round 2 under ``torch.profiler``.
 
-It prints the kernel table as one JSON line, the nvidia-smi line, and as
-its last line ``{"ok": true, "device": {...}}``.  Without a usable CUDA
-card it exits non-zero and prints no result.  It imports nothing of JAX
-or of the JAX package itself (checked on its own source at start), and
-fails if the port pulled ``jax`` in.
+Every launch a phase records is held against its plain version and
+timed (not counted) beside its bound.  It prints the kernel table as one
+JSON line, the nvidia-smi line, and as its last line ``{"ok": true,
+"device": {...}}``.  Without a usable CUDA card it exits non-zero and
+prints no result.  It imports nothing of JAX or of the JAX package itself
+(checked on its own source at start), and fails if, after every phase,
+``jax`` or any ``downpore_tpu`` module is loaded.
 """
 from __future__ import annotations
 
@@ -90,7 +99,6 @@ GENOME = 4_600_000
 N_READS = 8192
 ERR = 0.08
 K = 11
-P_KERNEL = 4096
 RECALL_MIN = 0.90
 TIMED_PASSES = 3
 BASES = np.frombuffer(b"ACGT", np.uint8)
@@ -127,58 +135,164 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def anchor_batch(rng, P: int, A: int):
+def anchor_batch(rng, P: int, A: int, span: int = 400, levels=False):
     """Random anchors in the recipe of the JAX package's Pallas parity
-    test: sorted positions, rank indices with swapped neighbours, 85%
-    valid."""
-    qp = np.sort(rng.integers(0, 400, (P, A)), axis=1).astype(np.int32)
-    tp = np.sort(rng.integers(0, 400, (P, A)), axis=1).astype(np.int32)
+    test: sorted positions in [0, span), rank indices with 20 swapped
+    neighbours a row, 85% valid.  With ``levels``, in
+    ``make_anchors_topk``'s layout instead: two anchors a query seed, side
+    by side, sharing its index and position."""
+    qp = np.sort(rng.integers(0, span, (P, A)), axis=1).astype(np.int32)
+    tp = np.sort(rng.integers(0, span, (P, A)), axis=1).astype(np.int32)
     qi = np.argsort(np.argsort(qp, axis=1), axis=1).astype(np.int32)
+    if levels:
+        qi //= 2
+        qp = np.repeat(qp[:, ::2], 2, axis=1)[:, :A]
     tj = np.argsort(np.argsort(tp, axis=1), axis=1).astype(np.int32)
     rows = np.repeat(np.arange(P), 20)
     sw = rng.integers(0, A - 1, P * 20)
-    for r, s in zip(rows, sw):
-        tj[r, s], tj[r, s + 1] = tj[r, s + 1], tj[r, s]
+    a, b = tj[rows, sw].copy(), tj[rows, sw + 1].copy()
+    tj[rows, sw], tj[rows, sw + 1] = b, a
     valid = (rng.random((P, A)) < 0.85).astype(np.int32)
     return qi, tj, qp, tp, valid
 
 
+# peak rates for the bounds: H100 SXM, 132 SMs x 64 INT32 lanes at the
+# 1.98 GHz boost clock (NVIDIA's Hopper architecture white paper), and
+# 3.35 TB/s of HBM3 (the data sheet)
+INT32_OPS_S = 132 * 64 * 1.98e9
+HBM_BYTES_S = 3.35e12
+# a check of candidate p at step t (chain_scan.cu's window_linear, its forms
+# precomputed): 2 index compares, 3 window compares (the branch and the two
+# of the branch taken), the branch select, the key select and the max
+CHAIN_OPS_PER_CHECK = 8
+# the shapes the paths give the chain kernel: (name, P, A, variant, mode)
+CHAIN_SHAPES = (
+    ("P4096 A128 extend forward (the earlier measurements' shape)", 4096,
+     128, "extend", "forward"),
+    ("P4096 A128 extend fb", 4096, 128, "extend", "fb"),
+    ("map [2140, 128] extend fb", 2140, 128, "extend", "fb"),
+    ("map [2140, 384] extend fb", 2140, 384, "extend", "fb"),
+    ("overlap [45000, 256] aligner lean", 45000, 256, "aligner", "lean"),
+    ("trim [16384, 64] extend fb", 16384, 64, "extend", "fb"),
+    ("trim [16384, 96] extend fb", 16384, 96, "extend", "fb"),
+)
+CHAIN_SWEEP_P = (264, 528, 1056, 2112, 4224, 8448, 16896, 33792)
+
+
+def bound(ops: float, nbytes: float):
+    """(bound ms, "operations" or "bytes"): the larger of the int32
+    operations over the card's int32 rate and the bytes over its memory
+    rate."""
+    t_ops, t_bytes = ops / INT32_OPS_S, nbytes / HBM_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def chain_bound(valid, mode: str):
+    """The chain kernel's bound on these inputs: the function needs a check
+    of each valid anchor t against each valid p < t, n (n - 1) / 2 for a
+    row of n valid anchors, per direction (``fb`` scans twice); invalid
+    anchors need none.  The bytes are each input read once and each
+    output written once."""
+    from downpore_tpu_torch.ops import cuda_chain
+    P, A = valid.shape
+    n = valid.ne(0).sum(dim=1).long()
+    checks = int((n * (n - 1) // 2).sum())
+    dirs = 2 if mode == "fb" else 1
+    nbytes = (5 + cuda_chain.N_OUT[mode]) * P * A * 4
+    return bound(checks * dirs * CHAIN_OPS_PER_CHECK, nbytes)
+
+
+def chain_raw(ins, k: int, variant: str, mode: str):
+    """One launch of the chain kernel into preallocated outputs, through
+    its C entry point: times the kernel, not the wrapper's allocations,
+    and is not counted."""
+    import ctypes
+    from downpore_tpu_torch.ops import cuda_chain
+    lib = cuda_chain._lib()
+    P, A = ins[0].shape
+    outs = torch.empty((cuda_chain.N_OUT[mode], P, A), dtype=torch.int32,
+                       device=ins[0].device)
+    ptrs = [o.data_ptr() for o in outs.unbind(0)]
+    slots = ptrs if mode != "lean" else [ptrs[0]] + [None] * 4 + [ptrs[1]]
+    c_in = (ctypes.c_void_p * 5)(*(a.data_ptr() for a in ins))
+    c_out = (ctypes.c_void_p * 11)(*(slots + [None] * (11 - len(slots))))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = lib.chain_scan_launch(c_in, c_out, P, A, k,
+                                    cuda_chain.VARIANTS[variant],
+                                    cuda_chain.MODES[mode], stream)
+        if err:
+            raise SystemExit(f"chain_scan launch failed: {err}")
+    run.outs = outs
+    return run
+
+
 def phase_kernel(dev):
+    """The chain kernel's three entry points (forward, forward + backward
+    in one launch, lean) against their plain versions on card tensors,
+    exactly, at A in {64, 96, 128, 256, 384} (register forms) and 640
+    (the shared-memory form), both variants; then its time at each path
+    shape beside its bound.  Returns (max abs error, (ms, plain ms,
+    bound ms, bound_by) at P = 4096, A = 128 forward, shape rows)."""
     from downpore_tpu_torch.ops import cuda_chain
     rng = np.random.default_rng(0)
     k = 10
     max_err = 0
-    timing = None
-    for A in (64, 128, 384):
-        arrs = anchor_batch(rng, P_KERNEL, A)
-        cases = [("fwd", [torch.from_numpy(a).to(dev) for a in arrs])]
-        if A == 128:
-            # the backward pass's input: reversed, negated coordinates
-            qi, tj, qp, tp, valid = arrs
-            neg = [np.ascontiguousarray(-a[:, ::-1]) for a in (qi, tj, qp, tp)]
-            neg.append(np.ascontiguousarray(valid[:, ::-1]))
-            cases.append(("neg", [torch.from_numpy(a).to(dev) for a in neg]))
-        for tag, ts in cases:
+    entry = {"forward": cuda_chain.chain_scan, "fb": cuda_chain.chain_scan_fb,
+             "lean": cuda_chain.chain_scan_lean}
+    for A in (64, 96, 128, 256, 384, 640):
+        for levels in (False, True):
+            ts = [torch.from_numpy(a).to(dev) for a in
+                  anchor_batch(rng, 512, A, span=3 * A, levels=levels)]
             for variant in ("extend", "aligner"):
-                got = cuda_chain.chain_scan(*ts, k, variant)
-                ref = cuda_chain.chain_scan_plain(*ts, k, variant)
-                torch.cuda.synchronize()
-                err = max(int((g - r).abs().max()) for g, r in zip(got, ref))
-                log(f"chain_scan P={P_KERNEL} A={A} {tag} {variant}: "
-                    f"max_abs_err={err}")
-                if err != 0:
-                    raise SystemExit(f"chain_scan differs from its plain "
-                                     f"version (A={A}, {tag}, {variant})")
-                max_err = max(max_err, err)
-        if A == 128:
-            ts = cases[0][1]
-            ms = cuda_ms(lambda: cuda_chain.chain_scan(*ts, k, "extend"), 50)
-            plain_ms = cuda_ms(
-                lambda: cuda_chain.chain_scan_plain(*ts, k, "extend"), 3)
-            timing = (ms, plain_ms)
-            log(f"chain_scan P={P_KERNEL} A=128 extend: kernel {ms:.4f} ms, "
-                f"plain torch {plain_ms:.2f} ms")
-    return max_err, timing
+                for mode, fn in entry.items():
+                    got = fn(*ts, k, variant)
+                    ref = cuda_chain.chain_scan_plain(*ts, k, variant, mode)
+                    torch.cuda.synchronize()
+                    err = max(int((g - r).abs().max())
+                              for g, r in zip(got, ref))
+                    max_err = max(max_err, err)
+                    if err != 0 or len(got) != len(ref):
+                        raise SystemExit(
+                            f"chain_scan differs from its plain version "
+                            f"(A={A}, levels={levels}, {variant}, {mode})")
+        log(f"chain_scan P=512 A={A}: forward, fb and lean, extend and "
+            f"aligner, distinct and paired query seeds: max_abs_err=0")
+    rows, timing = [], None
+    for name, P, A, variant, mode in CHAIN_SHAPES:
+        # the paths' layout (two anchors a query seed) but at the P4096
+        # shape, whose earlier measurements had distinct query seeds
+        ts = [torch.from_numpy(a).to(dev) for a in anchor_batch(
+            rng, P, A, span=3 * A, levels=not name.startswith("P4096"))]
+        run = chain_raw(ts, k, variant, mode)
+        run()
+        ref = entry[mode](*ts, k, variant)
+        torch.cuda.synchronize()
+        if any(not torch.equal(o, r) for o, r in zip(run.outs, ref)):
+            raise SystemExit(f"chain_scan's C entry point differs from its "
+                             f"wrapper at {name}")
+        ms = min(cuda_ms(run, 20), cuda_ms(run, 20))
+        b_ms, b_by = chain_bound(ts[4], mode)
+        rows.append((name, ms, b_ms, b_by))
+        log(f"chain_scan {name}: kernel {ms:.4f} ms; bound {b_ms:.4f} ms "
+            f"({b_by}); share of the bound {b_ms / ms:.3f}")
+        if timing is None:
+            plain_ms = cuda_ms(lambda: cuda_chain.chain_scan_plain(
+                *ts, k, variant, mode), 3)
+            timing = (ms, plain_ms, b_ms, b_by)
+            log(f"chain_scan {name}: plain torch {plain_ms:.2f} ms")
+    # the time per pair falls with P while the card is latency-bound and
+    # levels off once it is issue-bound
+    sweep = []
+    for P in CHAIN_SWEEP_P:
+        ts = [torch.from_numpy(a).to(dev) for a in anchor_batch(rng, P, 128)]
+        ms = cuda_ms(chain_raw(ts, k, "extend", "forward"), 50)
+        sweep.append(f"P={P} {ms * 1e6 / P:.2f}")
+    log("chain_scan A=128 extend forward, kernel us per 1,000 pairs: "
+        + ", ".join(sweep))
+    return max_err, timing, rows
 
 
 def make_case(n_reads: int, genome_len: int):
@@ -467,11 +581,15 @@ def phase_band(dev):
     ms = cuda_ms(lambda: cuda_band.update_bands(ds, poffs, 300), 50)
     plain_ms = cuda_ms(lambda: cuda_band.update_bands_plain(ds, poffs, 300),
                        10)
+    # ~12 int32 operations a band lane (four terms, saturating adds, the
+    # minimum, the threshold); bytes: two inputs, the bands and minima out
+    b_ms, b_by = bound(12 * B_BAND * 32, (3 * B_BAND * 32 + B_BAND) * 4)
     log(f"update_bands B={B_BAND} W=32: max_abs_err={err}; kernel "
-        f"{ms:.4f} ms, plain torch {plain_ms:.4f} ms")
+        f"{ms:.4f} ms, plain torch {plain_ms:.4f} ms; bound {b_ms:.4f} ms "
+        f"({b_by}), share {b_ms / ms:.3f}")
     if err != 0:
         raise SystemExit("update_bands differs from its plain version")
-    return err, ms, plain_ms
+    return err, ms, plain_ms, b_ms, b_by
 
 
 def consensus_jobs(rng, n_jobs: int, n_members: int = 6,
@@ -525,12 +643,14 @@ def phase_beam(dev):
         err = max(int((g - r).abs().max()) for g, r in zip(got, ref))
         ms = cuda_ms(lambda: cuda_beam.beam_consensus(*args), 5)
         plain_ms = cuda_ms(lambda: cuda_beam.beam_consensus_plain(*args), 1)
-        times[name] = (ms, plain_ms)
+        b_ms, b_by = beam_bound(args[0], args[1], got[1], beam, t_max, tab)
+        times[name] = (ms, plain_ms, b_ms, b_by)
         J = args[0].shape[0]
         log(f"beam_consensus {name} measure, {J} jobs x {N} members x "
             f"L={L}, t_max={t_max}: max_abs_err={err} (chains, n_valid); "
             f"mean n_valid {got[1].float().mean().item():.1f}; kernel "
-            f"{ms:.3f} ms, plain torch {plain_ms:.3f} ms")
+            f"{ms:.3f} ms, plain torch {plain_ms:.3f} ms; bound {b_ms:.4f} "
+            f"ms ({b_by}), share {b_ms / ms:.3f}")
         if err != 0:
             raise SystemExit(f"beam_consensus ({name}) differs from its "
                              "plain version")
@@ -688,29 +808,76 @@ def containment(seqs, genome) -> list:
 def recording(launch, plain, calls: list):
     """``launch`` (a kernel wrapper's ``_launch``) that also keeps a copy
     of each launch's card inputs and outputs in ``calls``, to be held
-    against ``plain`` after the run."""
+    against ``plain`` (and timed) after the run."""
     def wrapper(*a):
         saved = [x.clone() if torch.is_tensor(x) else x for x in a]
         out = launch(*a)
         if saved[0].numel():
             outs = out if isinstance(out, tuple) else (out,)
-            calls.append((plain, saved, [o.clone() for o in outs]))
+            calls.append((plain, saved, [o.clone() for o in outs], launch))
         return out
     return wrapper
 
 
+BEAM_OPS_PER_CELL = 20   # distance, band terms, saturating adds, min, vote
+
+
+def beam_bound(seqs, lens, n_valid, beam: int, t_max: int, table=None):
+    """The beam kernel's bound on these inputs: each job's steps (its
+    chain length) x 4 beam candidate evaluations (the 4 next k-mers of
+    each of the ``beam`` chains, scored once; the kernel's recomputation
+    of the kept beam after selection is not needed by the function) x its
+    members x 32 band lanes x BEAM_OPS_PER_CELL int32 operations; the
+    bytes are the inputs read once and the chains and their lengths
+    written once."""
+    members = lens.gt(0).sum(dim=1).long()
+    ops = int((n_valid.long() * members).sum()) * 4 * beam * 32 \
+        * BEAM_OPS_PER_CELL
+    J, N, L = seqs.shape
+    nbytes = (seqs.numel() + lens.numel() + J + J * (t_max + 1)) * 4 \
+        + (table.numel() * 2 if table is not None else 0)
+    return bound(ops, nbytes)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block leave the kernels' counts as they were."""
+    from downpore_tpu_torch.ops import cuda_band, cuda_beam, cuda_chain
+    kerns = (cuda_chain.chain_scan, cuda_band.update_bands,
+             cuda_beam.beam_consensus)
+    saved = [kern.launches for kern in kerns]
+    modes = dict(cuda_chain.MODE_LAUNCHES)
+    try:
+        yield
+    finally:
+        for kern, n in zip(kerns, saved):
+            kern.launches = n
+        cuda_chain.MODE_LAUNCHES.update(modes)
+
+
 def check_recorded(calls) -> dict:
     """Max abs error per kernel of the recorded launches against their
-    plain versions on the same card tensors; fails on any difference."""
+    plain versions on the same card tensors (fails on any difference),
+    and each launch's time (not counted) beside its bound."""
     errs = {}
-    for plain, args, outs in calls:
+    for plain, args, outs, launch in calls:
         ref = plain(*args)
         ref = ref if isinstance(ref, tuple) else (ref,)
         err = max(int((g - r).abs().max()) for g, r in zip(outs, ref))
         name = plain.__name__.removesuffix("_plain")
         errs[name] = max(errs.get(name, 0), err)
         scalars = [a for a in args if not torch.is_tensor(a) and a is not None]
-        log(f"  {name} {list(args[0].shape)} {scalars}: max_abs_err={err}")
+        if name == "chain_scan":     # the kernel alone, as phase_kernel
+            ms = cuda_ms(chain_raw(args[:5], *args[5:]), 5)
+            b_ms, b_by = chain_bound(args[4], args[7])
+        else:
+            with uncounted():
+                ms = cuda_ms(lambda: launch(*args), 3)
+            b_ms, b_by = beam_bound(args[0], args[1], outs[1], args[5],
+                                    args[6], args[3])
+        log(f"  {name} {list(args[0].shape)} {scalars}: max_abs_err={err}; "
+            f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), share "
+            f"{b_ms / ms:.3f}")
         if err != 0:
             raise SystemExit(f"{name} differs from its plain version at a "
                              f"shape of a main path")
@@ -1532,9 +1699,20 @@ def main() -> int:
                    if n in _build.build_seconds else "cached")
         for n in names) + f"; {time.perf_counter() - t0:.2f} s with load")
 
-    max_err, (ms, plain_ms) = phase_kernel(dev)
-    band_err, band_ms, band_plain_ms = phase_band(dev)
-    beam_err, (beam_ms, beam_plain_ms) = phase_beam(dev)
+    from downpore_tpu_torch import native
+    t0 = time.perf_counter()
+    lib = native.load()
+    log(f"native host library (downpore_tpu_torch/native/seqscan.cpp): "
+        f"{'loaded' if lib is not None else 'NOT loaded'} from "
+        f"{native._lib_path()} in {time.perf_counter() - t0:.2f} s")
+    if lib is None:
+        raise SystemExit("the native host library did not load: the host "
+                         "times would be the numpy route's")
+
+    max_err, chain_t, chain_rows = phase_kernel(dev)
+    band_err, band_ms, band_plain_ms, band_bound, band_by = phase_band(dev)
+    beam_err, (beam_ms, beam_plain_ms, beam_bound_ms, beam_by) = \
+        phase_beam(dev)
     mapper, reads, map_launches = phase_slice(dev)
     phase_profile(mapper, reads)
     phase_card_vs_cpu(mapper, reads)
@@ -1548,12 +1726,26 @@ def main() -> int:
     if "jax" in sys.modules:
         raise SystemExit("the port's map, overlap, correct or trim path "
                          "imported jax")
+    jax_pkg = sorted(m for m in sys.modules
+                     if m == "downpore_tpu" or m.startswith("downpore_tpu."))
+    if jax_pkg:
+        raise SystemExit(f"the port loaded the JAX package: {jax_pkg}")
+    log("after every phase: no jax and no downpore_tpu module loaded")
     # update_bands runs on no path: in the JAX package the Pallas band
     # kernel is test-only, and its step is the beam kernel's inner loop
+    from downpore_tpu_torch.ops import cuda_chain
     log(f"launches by path: map chain_scan {map_launches}; chromosome map "
         f"chain_scan {chr_launches}; correct {correct_launches}; overlap "
-        f"chain_scan {ov_launches}; trim chain_scan {trim_launches}")
+        f"chain_scan {ov_launches}; trim chain_scan {trim_launches}; "
+        f"chain_scan by mode over the whole run "
+        f"{dict(cuda_chain.MODE_LAUNCHES)}")
+    log("chain_scan at the path shapes: " + "; ".join(
+        f"{n} {ms:.4f} ms, bound {b:.4f} ms ({by})"
+        for n, ms, b, by in chain_rows))
 
+    ms, plain_ms, chain_bound_ms, chain_by = chain_t
+    # library_ms: no single PyTorch call computes any of the three
+    # functions (a serial DP scan, a beam search, a saturating band step)
     kernels = [{
         "name": "chain_scan", "route": "cuda",
         "source": "downpore_tpu_torch/csrc/chain_scan.cu",
@@ -1562,19 +1754,21 @@ def main() -> int:
         + correct_launches["chain_scan"] + ov_launches + trim_launches,
         "max_abs_err": max(max_err, chr_err, correct_errs["chain_scan"],
                            ov_err, trim_err),
-        "ms": ms, "plain_ms": plain_ms}, {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": chain_bound_ms,
+        "bound_by": chain_by, "library_ms": None}, {
         "name": "update_bands", "route": "cuda",
         "source": "downpore_tpu_torch/csrc/band_update.cu",
         "replaces": "downpore_tpu/ops/pallas_band.py:36",
         "launches": correct_launches["update_bands"],
-        "max_abs_err": band_err, "ms": band_ms, "plain_ms": band_plain_ms}, {
+        "max_abs_err": band_err, "ms": band_ms, "plain_ms": band_plain_ms,
+        "bound_ms": band_bound, "bound_by": band_by, "library_ms": None}, {
         "name": "beam_consensus", "route": "cuda",
         "source": "downpore_tpu_torch/csrc/beam_consensus.cu",
         "replaces": "downpore_tpu/ops/pallas_beam.py:105",
         "launches": correct_launches["beam_consensus"],
         "max_abs_err": max(beam_err, correct_errs["beam_consensus"]),
-        "ms": beam_ms,
-        "plain_ms": beam_plain_ms}]
+        "ms": beam_ms, "plain_ms": beam_plain_ms, "bound_ms": beam_bound_ms,
+        "bound_by": beam_by, "library_ms": None}]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,11 @@ two overlap rounds around a base-space consensus of the first round's
 pileups, emitting the consensus sequences as fasta on stdout.
 
 Same flags, defaults, help text and flow as ``downpore_tpu``'s correct
-command, whose host helpers (duplicate removal, seed-space consensus,
-query collation) it reuses.  The overlap rounds run on the port's
+command.  The reference pipeline is partially WIP: it runs one outer round
+then breaks, and steps 5-7 (pileup consensus output) are unimplemented
+(commands/correct.go:202-226); this command follows the same flow and
+emits the base-space consensus sequences of the final round as fasta,
+which is what step 7 was meant to produce.  The overlap rounds run on the port's
 ``Overlapper`` and the consensus on the port's beam scan
 (``-device_consensus true``, the default) or on the host landmark engine
 (``false``).  A failure of the device engine ends the run: there is no
@@ -16,25 +19,133 @@ from __future__ import annotations
 
 import sys
 
-from downpore_tpu.cli import correct_command as _ref
-from downpore_tpu.cli.framework import parse_bool, parse_float, parse_int
+from .framework import Command, parse_bool, parse_float, parse_int
 
 
-class CorrectCommand(_ref.CorrectCommand):
+def _remove_duplicates(hits):
+    """(ref: commands/correct.go:341-365)"""
+    hits.sort(key=lambda m: (m.seq_b.id, m.seq_b.offset))
+    i = len(hits) - 2
+    while i >= 0:
+        m = hits[i]
+        prev = hits[i + 1]
+        if m.seq_b.id == prev.seq_b.id:
+            c1 = (m.seq_b.offset + m.seq_b.length) // 2
+            c2 = (prev.seq_b.offset + prev.seq_b.length) // 2
+            if ((c1 > prev.seq_b.offset
+                 and c1 - prev.seq_b.offset < prev.seq_b.length)
+                    or (c2 > m.seq_b.offset
+                        and c2 - m.seq_b.offset < m.seq_b.length)):
+                del hits[i + 1]
+        i -= 1
+
+
+def _seed_space_consensus(rs, index, seq_ids):
+    """(ref: commands/correct.go:234-268)"""
+    from ..overlap import build_consensus
+    out = []
+    for hits in rs:
+        contig = None
+        if len(hits) >= 3:
+            contig = build_consensus(index, hits)
+            if contig is not None and len(contig.parts) >= 3:
+                for part in contig.parts:
+                    seq_ids.add(part)
+                original_id = hits[0].seq_a.id
+                contig.combined.id = original_id
+                original = -1
+                for kk, part in enumerate(contig.parts):
+                    if part == original_id:
+                        original = kk
+                        break
+                if original == -1:
+                    contig.combined.offset = hits[0].seq_a.offset
+                    contig.combined.inset = hits[0].seq_a.inset
+                else:
+                    contig.combined.offset = hits[0].seq_a.offset + \
+                        contig.offsets[original]
+                    contig.combined.inset = hits[0].seq_a.inset
+            else:
+                contig = None
+        out.append(contig)
+    return out
+
+
+def _perform_queries(queries, overlapper, overlap_size, seq_set,
+                     query_sequences):
+    """Collate matches as [query sequence][overlap chunk][hits]
+    (ref: commands/correct.go:272-311)."""
+    overlapper.add_sequences(seq_set.get_sequences())
+    query_results = [[] for _ in query_sequences]
+    query_indices = {}
+    index = 0
+    prev_seq = -1
+    for q in queries:
+        if q.sequence_id != prev_seq:
+            prev_seq = q.sequence_id
+            index = 0
+        query_indices[q.id] = index // 2
+        index += 1
+    matches = overlapper.find_overlaps(queries)
+    for m in matches:
+        seq_id = m.seq_a.id
+        try:
+            seq_index = query_sequences.index(seq_id)
+        except ValueError:
+            seq_index = 0
+        idx = query_indices.get(m.query_id, 0)
+        while len(query_results[seq_index]) <= idx:
+            query_results[seq_index].append([])
+        query_results[seq_index][idx].append(m)
+    return query_results
+
+
+class CorrectCommand(Command):
+    name = "correct"
+
+    def __init__(self):
+        super().__init__(
+            ["overlap_size", "num_seeds", "seed_batch_size", "chunk_size",
+             "k", "min_hits", "num_workers", "input", "trim",
+             "front_adapters", "back_adapters", "model", "himem",
+             "device_consensus", "data_parallel"],
+            ["1000", "15", "10000", "10000", "10", "0.25", "4", "", "0",
+             "", "", "", "true", "true", "false"],
+            ["Size of overlap to search for in bases",
+             "Minimum number of seeds to generate for each overlap query",
+             "Maximum total unique seeds to use in each query batch",
+             "Size to chop long reads into for querying against, in bases",
+             "Number of bases in each seed",
+             "Minimum proportion of seeds that must match each query",
+             "Number of worker threads to spawn",
+             "Fasta/fastq input file",
+             "Whether to search for and trim adapters: 0=off, 1=on",
+             "Fasta/fastq file containing front adapters",
+             "Fasta/fastq file containing back adapters",
+             "K-mer numeric values to use in alignment",
+             "Whether to cache all reads in memory",
+             "Run base-space consensus on the device beam engine "
+             "(bulk vmapped dispatches; offsets stay approximate; "
+             "parity-validated vs the host landmark engine — "
+             "false falls back to the faithful host beam)",
+             "Shard query batches across all attached devices "
+             "(jax.sharding data mesh; the chunk index replicates)"])
+
     def run(self, args):
-        from downpore_tpu.align.model import Model
-        from downpore_tpu.io import SequenceSet
-        from downpore_tpu.overlap.pileup import cleanup_overlaps, new_pileup
-        from downpore_tpu.seeds import SeedIndex
         from .. import resolve_device
+        from ..align.model import Model
         from ..consensus import build_consensus, build_consensus_bulk
+        from ..io import SequenceSet
         from ..overlap import QUERY_ALL, Overlapper
+        from ..overlap.pileup import cleanup_overlaps, new_pileup
+        from ..seeds import SeedIndex
         from ..trim import load_trimmer
         from ..utils import kmer_occurrences, score_seed_values
 
         if parse_bool(args["data_parallel"]):
             raise NotImplementedError(
-                "-data_parallel is not ported yet: ROADMAP.md, 'Multi-GPU'")
+                "Multi-GPU correct (-data_parallel) is not ported yet: "
+                "ROADMAP.md, 'Multi-GPU'")
         device = resolve_device()
         overlap_size = parse_int(args["overlap_size"])
         num_seeds = parse_int(args["num_seeds"])
@@ -68,18 +179,18 @@ class CorrectCommand(_ref.CorrectCommand):
         def seed_contigs(index, queries, overlapper, ids):
             """Collate a round's hits per query read and reduce them to
             seed-space contigs (ref: correct.go:111-140)."""
-            results = _ref._perform_queries(queries, overlapper,
+            results = _perform_queries(queries, overlapper,
                                             overlap_size, seq_set, ids)
             seed_consensus = []
             seq_ids = set()
             for rs in results:
                 for hits in rs:
                     if hits:
-                        _ref._remove_duplicates(hits)
+                        _remove_duplicates(hits)
                 rs.sort(key=lambda h: h[0].seq_a.offset if h else 1 << 30)
                 cleanup_overlaps(rs, overlap_size, k)
                 seed_consensus.append(
-                    _ref._seed_space_consensus(rs, index, seq_ids))
+                    _seed_space_consensus(rs, index, seq_ids))
             return seed_consensus, seq_ids
 
         while True:

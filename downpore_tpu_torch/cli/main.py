@@ -1,26 +1,25 @@
 """Entry point: ``python -m downpore_tpu_torch.cli <command> [-flag value
 ...]`` with the reference binary's command-line shape (ref:
 downpore.go:53-92).  Registers the JAX CLI's nine commands in its order:
-trim, map, overlap and correct on the torch engine, and the JAX-free host
-commands (subseq, consensus, align, kmers, version) as they are."""
+trim, map, overlap and correct on the torch engine, and the host commands
+subseq, consensus, align, kmers and version."""
 from __future__ import annotations
 
 import sys
 
-from downpore_tpu.cli.framework import aligned_print, parse_argv
+from .framework import aligned_print, parse_argv
 
 
 def get_commands():
     """The commands, in the JAX CLI's order."""
-    from downpore_tpu.cli.consensus_command import (AlignCommand,
-                                                    ConsensusCommand)
-    from downpore_tpu.cli.kmers_command import KmersCommand
-    from downpore_tpu.cli.subseq_command import SubSeqCommand
-    from downpore_tpu.cli.version_command import VersionCommand
+    from .consensus_command import AlignCommand, ConsensusCommand
     from .correct_command import CorrectCommand
+    from .kmers_command import KmersCommand
     from .map_command import MapCommand
     from .overlap_command import OverlapCommand
+    from .subseq_command import SubSeqCommand
     from .trim_command import TrimCommand
+    from .version_command import VersionCommand
     return [TrimCommand(), MapCommand(), OverlapCommand(), SubSeqCommand(),
             ConsensusCommand(), AlignCommand(), CorrectCommand(),
             KmersCommand(), VersionCommand()]

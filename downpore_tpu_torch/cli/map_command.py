@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import sys
 
-from downpore_tpu.cli.framework import Command, parse_bool, parse_int
+from .framework import Command, parse_bool, parse_int
 
 
 class MapCommand(Command):
@@ -35,15 +35,15 @@ class MapCommand(Command):
              "with a psum over the seed axis)"])
 
     def run(self, args):
-        from downpore_tpu.io import SequenceSet
+        from ..io import SequenceSet
         from ..mapping import Mapper
         from ..utils import kmer_occurrences, score_seed_values
 
         if parse_bool(args["data_parallel"]) or \
                 parse_int(args["seed_shards"]) > 1:
             raise NotImplementedError(
-                "-data_parallel / -seed_shards are not ported yet: "
-                "ROADMAP.md, 'Multi-GPU'")
+                "Multi-GPU map (-data_parallel / -seed_shards) is not "
+                "ported yet: ROADMAP.md, 'Multi-GPU'")
         k = parse_int(args["k"])
         ref_set = SequenceSet(args["reference"])
         reference = next(iter(ref_set.get_sequences()))

@@ -10,20 +10,56 @@ from __future__ import annotations
 
 import sys
 
-from downpore_tpu.cli import trim_command as _ref
-from downpore_tpu.cli.framework import parse_bool, parse_int
+from .framework import Command, parse_bool, parse_int
 
 
-class TrimCommand(_ref.TrimCommand):
+class TrimCommand(Command):
+    name = "trim"
+
+    def __init__(self):
+        super().__init__(
+            ["input", "k", "chunk_size", "middle_threshold", "discard_middle",
+             "check_reads", "adapter_threshold", "extra_end_trim",
+             "extra_middle_trim", "tag_adapters", "verbosity",
+             "front_adapters", "back_adapters", "num_workers", "himem",
+             "demultiplex", "require_pairs", "determine_adapters",
+             "data_parallel", "checkpoint", "profile"],
+            ["", "6", "5000", "85", "false", "10000", "90", "5", "100",
+             "true", "1", "", "", "4", "false", "", "false", "true",
+             "false", "", ""],
+            ["Fasta/fastq/gzip input file",
+             "k-mer size to use when matching adapters",
+             "Split long reads into chunks of this size when indexing",
+             "% identity for matching adapters that split reads",
+             "Whether to keep halves of split reads",
+             "Number of reads to use to determine which adapters are present",
+             "% identity required at check_adapters stage",
+             "Number of bases to remove around adapters at read edges",
+             "Number of bases to remove around read-splitting adapters",
+             "Whether to add adapter names to output sequence names",
+             "Level (0-2) of output to stderr",
+             "Fasta/fastq file containing front adapters",
+             "Fasta/fastq file containing back adapters",
+             "Number of threads to use",
+             "Whether to cache all reads in memory",
+             "A path to demultiplex to, otherwise write sequences to stdout",
+             "Whether front/back adapters with the same name must appear together",
+             "Whether to use a fixed set of adapters or to search for those present",
+             "Shard window batches across all attached devices "
+             "(jax.sharding data mesh; adapter tables replicate)",
+             "Snapshot file for checkpoint/resume at batch boundaries",
+             "Directory to write a JAX profiler trace to"])
+
     def run(self, args):
-        from downpore_tpu.io import SequenceSet
         from .. import resolve_device
+        from ..io import SequenceSet
         from ..trim import load_trimmer
         from ..utils import StageTimer, start_profiler, stop_profiler
 
         if parse_bool(args["data_parallel"]):
             raise NotImplementedError(
-                "-data_parallel is not ported yet: ROADMAP.md, 'Multi-GPU'")
+                "Multi-GPU trim (-data_parallel) is not ported yet: "
+                "ROADMAP.md, 'Multi-GPU'")
         device = resolve_device()
         trimmer = load_trimmer(args["front_adapters"], args["back_adapters"],
                                parse_int(args["k"]), device=device)

@@ -1,6 +1,27 @@
-"""Host sequence types the port shares with ``downpore_tpu.core`` (a
-JAX-free host module), re-exported so that callers of the port import
-from ``downpore_tpu_torch`` alone."""
-from downpore_tpu.core import Sequence
+from .sequence import (
+    Sequence,
+    encode_bases,
+    decode_bases,
+    reverse_complement,
+    rolling_kmers,
+    short_kmers,
+    count_seed_kmers,
+    write_segments,
+    kmer_value,
+    kmer_string,
+    kmer_reverse_complement,
+)
 
-__all__ = ["Sequence"]
+__all__ = [
+    "Sequence",
+    "encode_bases",
+    "decode_bases",
+    "reverse_complement",
+    "rolling_kmers",
+    "short_kmers",
+    "count_seed_kmers",
+    "write_segments",
+    "kmer_value",
+    "kmer_string",
+    "kmer_reverse_complement",
+]

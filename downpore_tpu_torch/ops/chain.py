@@ -3,7 +3,8 @@
 
 Anchors are (i, j) pairs with ``query_seed[i] == target_seed[j]``,
 batched as ``[P, A]`` arrays over many (query, target) pairs.  A forward
-and a backward scan (``cuda_chain.chain_scan``, the Hopper kernel) give,
+and a backward scan (``cuda_chain.chain_scan_fb``, one launch of the Hopper
+kernel) give,
 for every anchor, the best chain through it, its covered bases and the
 chain's start/end coordinates; ``summarize_dp`` packs the per-pair
 quantities the mapper walks.  ``dp_forward_lean`` is the overlap path's
@@ -18,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .cuda_chain import chain_scan
+from .cuda_chain import chain_scan_fb, chain_scan_lean
 # the gap windows live beside the plain scan that uses them; re-exported
 # under the JAX module's name
 from .cuda_chain import window_ok as _window_ok  # noqa: F401
@@ -63,24 +64,19 @@ def make_anchors_topk(qseeds, qpos, tseeds, tpos, per_seed: int = 2):
 
 
 def dp_from_anchors(anchors, k: int, variant: str = "extend"):
-    """Forward + backward chain DP over a prepared anchor batch.
+    """Forward + backward chain DP over a prepared anchor batch: one
+    ``chain_scan_fb`` launch, whose backward warps read each row reversed
+    and negated and write back in the row's own order.
 
     Returns a dict of ``[P, A]`` arrays (see ``downpore_tpu.ops.chain.
     dp_from_anchors``): qi, tj, qp, tp, valid, overflow, f, b, through,
     cov_q, cov_t, start_qp/tp, end_qp/tp, bp."""
     qi, tj, qp, tp, valid = (anchors["qi"], anchors["tj"], anchors["qp"],
                              anchors["tp"], anchors["valid"])
-    v32 = valid.to(torch.int32)
-    f, cov_qf, cov_tf, s_qp, s_tp, bp = chain_scan(
-        qi.contiguous(), tj.contiguous(), qp.contiguous(), tp.contiguous(),
-        v32.contiguous(), k, variant)
-    # backward pass: reverse anchor order and negate coordinates, turning
-    # "best chain starting here" into the same forward recurrence
-    rev = lambda x: torch.flip(x, dims=(1,))
-    bb, cov_qb, cov_tb, e_qp, e_tp, _ = chain_scan(
-        rev(-qi), rev(-tj), rev(-qp), rev(-tp), rev(v32), k, variant)
-    b, cov_qb, cov_tb = rev(bb), rev(cov_qb), rev(cov_tb)
-    e_qp, e_tp = -rev(e_qp), -rev(e_tp)
+    (f, cov_qf, cov_tf, s_qp, s_tp, bp, b, cov_qb, cov_tb, e_qp,
+     e_tp) = chain_scan_fb(qi.contiguous(), tj.contiguous(), qp.contiguous(),
+                           tp.contiguous(),
+                           valid.to(torch.int32).contiguous(), k, variant)
     through = torch.where(valid, f + b - 1, 0)
     return {
         "qi": qi, "tj": tj, "qp": qp, "tp": tp, "valid": valid,
@@ -95,12 +91,11 @@ def dp_from_anchors(anchors, k: int, variant: str = "extend"):
 
 def dp_forward_lean(anchors, k: int, variant: str = "extend"):
     """Forward-only chain DP: a dict with ``qi, tj, f, bp``, exactly what
-    the overlap best-chain walk consumes.  The JAX module's lean scan
-    (``_chain_scan_lean``) carries the same recurrence as the full one, so
-    it takes the forward ``chain_scan`` kernel's score and backpointers."""
+    the overlap best-chain walk consumes (``_chain_scan_lean``), from the
+    kernel's lean mode, which keeps only score and backpointers."""
     qi, tj, qp, tp, valid = (anchors["qi"], anchors["tj"], anchors["qp"],
                              anchors["tp"], anchors["valid"])
-    f, _, _, _, _, bp = chain_scan(
+    f, bp = chain_scan_lean(
         qi.contiguous(), tj.contiguous(), qp.contiguous(), tp.contiguous(),
         valid.to(torch.int32).contiguous(), k, variant)
     return {"qi": qi, "tj": tj, "f": f, "bp": bp}

@@ -1,23 +1,29 @@
-"""Forward anchor chain DP: the hand-written Hopper kernel and its plain
-torch version.
+"""Anchor chain DP: the hand-written Hopper kernel and its plain torch
+versions.
 
 Counterpart of ``downpore_tpu/ops/pallas_chain.py`` (``_kernel`` /
 ``pallas_chain_scan``), which computes exactly ``ops/chain.py:_chain_scan``
-vmapped over pairs.  ``chain_scan`` takes ``[P, A]`` int32 anchors (qi, tj,
-qp, tp, valid as 0/1) and returns the six ``[P, A]`` int32 arrays
-``(score, cov_q, cov_t, s_qp, s_tp, bp)``.
+vmapped over pairs.  Three entry points on ``[P, A]`` int32 anchors (qi,
+tj, qp, tp, valid as 0/1), each one launch of ``csrc/chain_scan.cu``:
+
+* ``chain_scan``: the forward scan, six arrays ``(score, cov_q, cov_t,
+  s_qp, s_tp, bp)``;
+* ``chain_scan_fb``: forward and backward (the JAX module's reversed,
+  negated second scan, already un-reversed): eleven arrays, the forward
+  six then ``(b, cov_qb, cov_tb, e_qp, e_tp)``;
+* ``chain_scan_lean``: ``(score, bp)`` only (``_chain_scan_lean``).
 
 A tensor on the CPU goes to ``chain_scan_plain``, a per-step transcription
 of ``_chain_scan`` vectorised over pairs.  A CUDA tensor launches the
-kernel in ``csrc/chain_scan.cu`` or raises; there is no fallback.
+kernel or raises; there is no fallback.  ``chain_scan.launches`` counts
+the kernel's launches in every mode, ``MODE_LAUNCHES`` by mode.
 
-The scan is latency-bound: A serial steps per pair over a few KB of state,
-so neither HBM bandwidth nor arithmetic limits it.  In eager torch each
-step is ~25 small launches (~10k per dispatch at A = 384, twice for the
-backward pass); the kernel instead keeps each pair's inputs and state in
-shared memory for the whole scan, one warp per pair, and spreads the
-predecessor search of each step across the warp's lanes (see the source
-note in ``chain_scan.cu``).
+The kernel is bound by the integer issue rate: A serial steps per pair,
+step t checking every p < t.  It keeps a pair's anchors in registers, one
+warp per pair and direction, takes each step's argmax with one
+``redux.sync`` over a packed (score, -p) key, and tests the gap windows
+without division, as compares of precomputed forms (``window_ok_linear``);
+see the source note in ``chain_scan.cu``.
 """
 from __future__ import annotations
 
@@ -30,6 +36,13 @@ from . import _build
 
 NEG = -(10 ** 9)
 VARIANTS = {"extend": 0, "aligner": 1}
+
+MODES = {"forward": 0, "fb": 1, "lean": 2}
+N_OUT = {"forward": 6, "fb": 11, "lean": 2}
+# the kernel's packed argmax key (score << 16) | (0xFFFF - p) is exact
+# while every score and anchor index is below 2^15
+MAX_A = (1 << 15) - 1
+MODE_LAUNCHES = {m: 0 for m in MODES}
 
 _count_lock = threading.Lock()
 
@@ -60,8 +73,31 @@ def window_ok(gap_q: torch.Tensor, gap_t: torch.Tensor, k: int,
     return (gap_q >= min_gap) & (gap_q <= max_gap)
 
 
-def chain_scan_plain(qi, tj, qp, tp, valid, k: int,
-                     variant: str = "extend"):
+def window_ok_linear(qp_p, tp_p, qp_t, tp_t, k: int,
+                     variant: str = "extend") -> torch.Tensor:
+    """``window_ok`` as the kernel tests it (``window_linear`` in
+    ``chain_scan.cu``, with the proof): without division, since
+    ``x >= floor(y / 3)`` iff ``3x >= y - 2`` and ``x <= floor(y / 2)`` iff
+    ``2x <= y`` for every sign, and with the gaps written out in the anchor
+    positions (``gap_q = qp_t - qp_p - k``), so that each inequality
+    compares a form of anchor p with a threshold of step t."""
+    if variant == "extend":
+        pos = (3 * tp_p - 2 * qp_p <= 3 * tp_t - 2 * qp_t + 2 * k + 2) \
+            & (2 * tp_p - 3 * qp_p >= 2 * tp_t - 3 * qp_t - k)
+        neg = (tp_p <= tp_t) & (tp_p >= tp_t - k)
+        return torch.where(qp_p > qp_t - k, neg, pos)
+    if variant != "aligner":
+        raise ValueError(f"unknown chain variant {variant!r}")
+    m_ok = 2 * qp_p - 3 * tp_p >= 2 * qp_t - 3 * tp_t - k - 2
+    neg_min = (qp_p <= qp_t) & ((qp_p >= qp_t - k) | m_ok)
+    small = (qp_p <= qp_t - k) & (qp_p >= qp_t - k - 20)
+    ratio = (3 * qp_p - 2 * tp_p <= 3 * qp_t - 2 * tp_t + 2 * k + 2) & m_ok
+    return torch.where(2 * tp_p > 2 * tp_t - 5 * k, neg_min,
+                       torch.where(3 * tp_p > 3 * tp_t - k - 38, small,
+                                   ratio))
+
+
+def _forward_plain(qi, tj, qp, tp, valid, k: int, variant: str):
     """Plain torch forward scan on any device: the recurrence of
     ``_chain_scan`` step by step, vectorised over the ``P`` pairs.  Step t
     reads only the already-final prefix ``[:, :t]`` of the state."""
@@ -118,10 +154,33 @@ def chain_scan_plain(qi, tj, qp, tp, valid, k: int,
     return score, cov_q, cov_t, s_qp, s_tp, bp
 
 
+def chain_scan_plain(qi, tj, qp, tp, valid, k: int,
+                     variant: str = "extend", mode: str = "forward"):
+    """Plain torch version of every mode of the kernel (see the module
+    docstring for the outputs).  The backward scan is the JAX module's:
+    the forward recurrence over the reversed, negated row, its outputs
+    reversed back and its start positions negated back."""
+    fwd = _forward_plain(qi, tj, qp, tp, valid, k, variant)
+    if mode == "lean":
+        return fwd[0], fwd[5]
+    if mode == "forward":
+        return fwd
+    if mode != "fb":
+        raise ValueError(f"unknown chain_scan mode {mode!r}")
+    rev = lambda x: torch.flip(x, dims=(1,))
+    b, cov_qb, cov_tb, e_qp, e_tp, _ = _forward_plain(
+        rev(-qi), rev(-tj), rev(-qp), rev(-tp), rev(valid), k, variant)
+    return fwd + (rev(b), rev(cov_qb), rev(cov_tb), -rev(e_qp), -rev(e_tp))
+
+
 def _check(arrays, device):
     shape = arrays[0].shape
     if len(shape) != 2:
         raise ValueError(f"chain_scan takes [P, A] arrays, got {tuple(shape)}")
+    if shape[1] > MAX_A:
+        raise ValueError(f"chain_scan takes A <= {MAX_A} anchors a pair (the "
+                         f"kernel's argmax key would overflow), got "
+                         f"{shape[1]}")
     for a in arrays:
         if a.device != device:
             raise ValueError("chain_scan inputs must share one device")
@@ -133,49 +192,83 @@ def _check(arrays, device):
             raise ValueError("chain_scan inputs must be contiguous")
 
 
-def _launch(qi, tj, qp, tp, valid, k: int, variant: str):
-    P, A = qi.shape
-    if P == 0 or A == 0:
-        # nothing to scan: no launch, and the count stays as it is
-        return tuple(torch.empty((P, A), dtype=torch.int32, device=qi.device)
-                     for _ in range(6))
+def _lib():
     lib = _build.load("chain_scan")
     fn = lib.chain_scan_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] \
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.chain_scan_error_string.argtypes = [ctypes.c_int]
         lib.chain_scan_error_string.restype = ctypes.c_char_p
-    outs = [torch.empty((P, A), dtype=torch.int32, device=qi.device)
-            for _ in range(6)]
+        lib.chain_scan_max_register_a.restype = ctypes.c_int
+    return lib
+
+
+def _launch(qi, tj, qp, tp, valid, k: int, variant: str,
+            mode: str = "forward"):
+    P, A = qi.shape
+    n_out = N_OUT[mode]
+    if P == 0 or A == 0:
+        # nothing to scan: no launch, and the count stays as it is
+        return tuple(torch.empty((P, A), dtype=torch.int32, device=qi.device)
+                     for _ in range(n_out))
+    lib = _lib()
+    # one allocation for every output; each [P, A] view is contiguous
+    outs = torch.empty((n_out, P, A), dtype=torch.int32,
+                       device=qi.device).unbind(0)
+    # the kernel's output slots: lean writes score (0) and bp (5)
+    slots = [o.data_ptr() for o in outs] if mode != "lean" else \
+        [outs[0].data_ptr()] + [None] * 4 + [outs[1].data_ptr()]
+    slots += [None] * (11 - len(slots))
+    ins = (ctypes.c_void_p * 5)(*(a.data_ptr()
+                                  for a in (qi, tj, qp, tp, valid)))
+    out_arr = (ctypes.c_void_p * 11)(*slots)
     with torch.cuda.device(qi.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(a.data_ptr() for a in (qi, tj, qp, tp, valid)),
-                 *(o.data_ptr() for o in outs), P, A, k,
-                 VARIANTS[variant], stream)
+        err = lib.chain_scan_launch(ins, out_arr, P, A, k, VARIANTS[variant],
+                                    MODES[mode], stream)
     if err != 0:
         msg = lib.chain_scan_error_string(err).decode()
-        raise RuntimeError(f"chain_scan kernel launch failed: {msg} ({err})")
+        raise RuntimeError(f"chain_scan kernel launch failed ({mode}, "
+                           f"A = {A}): {msg} ({err})")
     with _count_lock:
         chain_scan.launches += 1
+        MODE_LAUNCHES[mode] += 1
     return tuple(outs)
 
 
-def chain_scan(qi, tj, qp, tp, valid, k: int, variant: str = "extend"):
-    """Forward chain DP over ``[P, A]`` int32 anchors; see the module
-    docstring.  CPU tensors run ``chain_scan_plain``; CUDA tensors launch
-    the kernel (``chain_scan.launches`` counts those launches)."""
+def _scan(qi, tj, qp, tp, valid, k: int, variant: str, mode: str):
     arrays = (qi, tj, qp, tp, valid)
     device = qi.device
     _check(arrays, device)
     if variant not in VARIANTS:
         raise ValueError(f"unknown chain variant {variant!r}")
     if device.type == "cpu":
-        return chain_scan_plain(qi, tj, qp, tp, valid, k, variant)
+        return chain_scan_plain(qi, tj, qp, tp, valid, k, variant, mode)
     if device.type != "cuda":
         raise ValueError(f"chain_scan has no kernel for {device.type!r}")
-    return _launch(qi, tj, qp, tp, valid, k, variant)
+    return _launch(qi, tj, qp, tp, valid, k, variant, mode)
+
+
+def chain_scan(qi, tj, qp, tp, valid, k: int, variant: str = "extend"):
+    """Forward chain DP over ``[P, A]`` int32 anchors: ``(score, cov_q,
+    cov_t, s_qp, s_tp, bp)``.  CPU tensors run ``chain_scan_plain``; CUDA
+    tensors launch the kernel (``chain_scan.launches`` counts launches of
+    every mode)."""
+    return _scan(qi, tj, qp, tp, valid, k, variant, "forward")
+
+
+def chain_scan_fb(qi, tj, qp, tp, valid, k: int, variant: str = "extend"):
+    """Forward and backward chain DP in one launch: the six forward arrays,
+    then the backward scan's ``(b, cov_qb, cov_tb, e_qp, e_tp)`` in the
+    row's own anchor order and coordinates."""
+    return _scan(qi, tj, qp, tp, valid, k, variant, "fb")
+
+
+def chain_scan_lean(qi, tj, qp, tp, valid, k: int, variant: str = "extend"):
+    """Forward chain DP keeping only ``(score, bp)``."""
+    return _scan(qi, tj, qp, tp, valid, k, variant, "lean")
 
 
 chain_scan.launches = 0

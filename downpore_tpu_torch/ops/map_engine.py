@@ -15,7 +15,7 @@ Per batch of query windows, one ``dispatch_packed`` call runs retrieval
 counts and the distinct-seed gate (int8 membership rows gathered and
 summed), selects every passing (query, chunk) pair with ``torch.nonzero``,
 builds anchors against the resident chunk tables, runs the chain DP
-(``cuda_chain.chain_scan``, forward and backward) and packs the lean
+(``cuda_chain.chain_scan_fb``, forward and backward) and packs the lean
 top-4 summaries.  ``collect_arrays_many`` brings the rows to the host for
 the mapper's candidate walk.
 
@@ -641,7 +641,7 @@ class MapEngine:
         """One-pass native packer (native/seqscan.cpp pack_windows): same
         outputs as the numpy pipeline of ``pack_query_windows``.  None
         when the toolchain is absent."""
-        from downpore_tpu import native
+        from .. import native
         if native.load() is None or not len(windows):
             return None
         tabs = getattr(self, "_nat_tables", None)

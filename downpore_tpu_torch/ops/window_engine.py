@@ -16,7 +16,7 @@ gate sums the membership rows of each window's k-mers (``_gate_counts``:
 counts per *position*, so a k-mer repeated in a window counts each time),
 keeps the top-``top_t`` adapters of each window (``_gate_topk_pairs``, ties
 to the lower adapter index), and the chain DP (``chain.dp_from_anchors`` ->
-``cuda_chain.chain_scan``) runs on the pairs that pass.  The edge verdict
+``cuda_chain.chain_scan_fb``) runs on the pairs that pass.  The edge verdict
 (the findMatches walk), DetermineAdapters' per-adapter coverage and the
 middle pass's detection rows are computed on the device; only they come
 back to the host.

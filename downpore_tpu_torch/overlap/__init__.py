@@ -1,7 +1,6 @@
-from downpore_tpu.overlap import (QUERY_ALL, QUERY_CENTRE, QUERY_EDGES,
-                                  WEIGHT_EDGES, SeedQuery)
-
-from .overlapper import Overlapper
+from .overlapper import Overlapper, SeedQuery, QUERY_EDGES, QUERY_CENTRE, \
+    QUERY_ALL, WEIGHT_EDGES
+from .combine import SeedContig, build_consensus
 
 __all__ = ["Overlapper", "SeedQuery", "QUERY_EDGES", "QUERY_CENTRE",
-           "QUERY_ALL", "WEIGHT_EDGES"]
+           "QUERY_ALL", "WEIGHT_EDGES", "SeedContig", "build_consensus"]

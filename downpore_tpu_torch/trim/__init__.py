@@ -1,7 +1,6 @@
 """Adapter trimming on the torch engine, and the bundled ONT adapter set
-(``downpore_tpu.data``, JAX-free host data) re-exported so that callers of
-the port import from ``downpore_tpu_torch`` alone."""
-from downpore_tpu.data import BACK_ADAPTERS, FRONT_ADAPTERS
+(``downpore_tpu_torch.data``)."""
+from ..data import BACK_ADAPTERS, FRONT_ADAPTERS
 
 from .trimmer import Trimmer, load_trimmer
 

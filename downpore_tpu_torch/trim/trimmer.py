@@ -32,11 +32,10 @@ from typing import List, Optional
 
 import numpy as np
 
-from downpore_tpu.core.sequence import Sequence
-from downpore_tpu.seeds import SeedIndex
-
 from .. import resolve_device
+from ..core.sequence import Sequence
 from ..ops.window_engine import WindowChainEngine
+from ..seeds import SeedIndex
 
 EDGE_SIZE = 150          # bases searched for edge adapters (trim.go:453)
 LONGEST_ADAPTER = 100    # padding around adapters mid-read (trim.go:153)
@@ -612,8 +611,8 @@ def load_trimmer(front_path: Optional[str], back_path: Optional[str],
                  device=None) -> Trimmer:
     """Create a Trimmer from adapter fasta files, or the bundled ONT
     adapter set when paths are empty (ref: trim/trim.go:102-116)."""
-    from downpore_tpu.data import BACK_ADAPTERS, FRONT_ADAPTERS
-    from downpore_tpu.io import SequenceSet
+    from ..data import BACK_ADAPTERS, FRONT_ADAPTERS
+    from ..io import SequenceSet
 
     def load(path, bundled):
         if path:

@@ -1,19 +1,52 @@
 """Stage timing and the ``-profile DIR`` trace of the port's commands.
 
-``StageTimer`` is ``downpore_tpu.utils.metrics``'s (JAX-free host code).
-``start_profiler`` / ``stop_profiler`` keep that module's names and
-messages, with ``torch.profiler`` in place of ``jax.profiler``: the trace
-is a Chrome trace, ``DIR/trace.json``, with device activity when the
+``StageTimer`` accumulates wall seconds and item counts per named stage
+and reports them on stderr.  ``start_profiler`` / ``stop_profiler``
+capture a ``torch.profiler`` trace: a Chrome trace, ``DIR/trace.json``, with device activity when the
 command computes on a CUDA card."""
 from __future__ import annotations
 
 import os
 import sys
-from typing import Optional
+import time
+from contextlib import contextmanager
+from typing import Dict, Optional
 
 import torch
 
-from downpore_tpu.utils.metrics import StageTimer
+
+class StageTimer:
+    """Accumulates (wall seconds, item count) per named stage."""
+
+    def __init__(self, enabled: bool = True):
+        self.enabled = enabled
+        self.stages: Dict[str, list] = {}
+
+    @contextmanager
+    def stage(self, name: str, items: int = 0):
+        t0 = time.time()
+        try:
+            yield self
+        finally:
+            dt = time.time() - t0
+            acc = self.stages.setdefault(name, [0.0, 0])
+            acc[0] += dt
+            acc[1] += items
+
+    def add_items(self, name: str, items: int):
+        acc = self.stages.setdefault(name, [0.0, 0])
+        acc[1] += items
+
+    def report(self, out=None):
+        if out is None:
+            out = sys.stderr  # resolved at call time (testable)
+        if not self.enabled or not self.stages:
+            return
+        for name, (secs, items) in self.stages.items():
+            rate = f"  ({items / secs:.1f}/s)" if items and secs > 0 else ""
+            count = f"  {items} items" if items else ""
+            print(f"[stage] {name}: {secs:.2f}s{count}{rate}", file=out)
+
 
 _active: Optional[tuple] = None   # (profiler, trace dir)
 

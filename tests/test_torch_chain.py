@@ -93,6 +93,85 @@ def test_chain_scan_plain_matches_pallas_interpret(variant):
                                       err_msg=f"{variant}:{name}")
 
 
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_window_divfree_matches_window_ok(variant):
+    """The kernel's division-free window test (compares of anchor forms
+    with step thresholds, at random anchor positions p and t = p + gap + k)
+    equals the flooring one over every (gap_q, gap_t) in [-3000, 3000]^2
+    (row blocks bound memory)."""
+    g = torch.arange(-3000, 3001, dtype=torch.int32)
+    gen = torch.Generator().manual_seed(3)
+    for k in (5, 10, 11, 13):
+        inside = 0
+        for lo in range(0, g.numel(), 1000):
+            gq = g[lo:lo + 1000, None].expand(-1, g.numel())
+            gt = g[None, :].expand(gq.shape[0], -1)
+            ref = cuda_chain.window_ok(gq, gt, k, variant)
+            qp_p = torch.randint(-5000, 5000, gq.shape, generator=gen,
+                                 dtype=torch.int32)
+            tp_p = torch.randint(-5000, 5000, gq.shape, generator=gen,
+                                 dtype=torch.int32)
+            got = cuda_chain.window_ok_linear(qp_p, tp_p, qp_p + gq + k,
+                                              tp_p + gt + k, k, variant)
+            assert torch.equal(ref, got), (k, lo)
+            inside += int(ref.sum())
+        assert 0 < inside < g.numel() ** 2
+
+
+@pytest.mark.parametrize("A", [64, 96, 256])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_chain_scan_fb_plain_matches_jax(A, variant):
+    """``chain_scan_fb``'s plain version: the forward scan, then the JAX
+    module's backward scan (reversed, negated row) already un-reversed,
+    with its start positions negated back."""
+    rng = np.random.default_rng(A + 3 * len(variant))
+    k = 11
+    qi, tj, qp, tp, valid = anchor_batch(rng, 3, A, span=3 * A)
+    scan = jax.vmap(jchain._chain_scan, in_axes=(0, 0, 0, 0, 0, None, None))
+    fwd = scan(qi, tj, qp, tp, valid.astype(bool), k, variant)
+    rev = lambda x: np.ascontiguousarray(np.asarray(x)[:, ::-1])
+    bwd = scan(rev(-qi), rev(-tj), rev(-qp), rev(-tp),
+               rev(valid).astype(bool), k, variant)
+    ref = [np.asarray(a) for a in fwd] + [rev(bwd[0]), rev(bwd[1]),
+                                          rev(bwd[2]), -rev(bwd[3]),
+                                          -rev(bwd[4])]
+    got = cuda_chain.chain_scan_fb(*(_t(a) for a in (qi, tj, qp, tp, valid)),
+                                   k, variant)
+    names = SCAN_NAMES + ["b", "cov_qb", "cov_tb", "e_qp", "e_tp"]
+    assert len(got) == len(names) == 11
+    for name, r, g in zip(names, ref, got):
+        np.testing.assert_array_equal(r, g.numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize("A", [64, 256])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_chain_scan_lean_plain_matches_jax(A, variant):
+    rng = np.random.default_rng(A + 5 * len(variant))
+    qi, tj, qp, tp, valid = anchor_batch(rng, 4, A, span=3 * A)
+    ref = jax.vmap(jchain._chain_scan_lean,
+                   in_axes=(0, 0, 0, 0, 0, None, None))(
+        qi, tj, qp, tp, valid.astype(bool), 10, variant)
+    got = cuda_chain.chain_scan_lean(
+        *(_t(a) for a in (qi, tj, qp, tp, valid)), 10, variant)
+    assert len(got) == 2
+    for name, r, g in zip(("score", "bp"), ref, got):
+        np.testing.assert_array_equal(np.asarray(r), g.numpy(),
+                                      err_msg=f"{variant}:{name}")
+
+
+@pytest.mark.parametrize("scan", ["chain_scan", "chain_scan_fb",
+                                  "chain_scan_lean"])
+def test_chain_scan_refuses_key_overflow(scan):
+    """The kernel's argmax key packs (score, 0xFFFF - p) into 32 bits:
+    every wrapper refuses A >= 2^15 before any scan."""
+    ok = torch.zeros((1, cuda_chain.MAX_A), dtype=torch.int32)
+    assert cuda_chain.MAX_A == (1 << 15) - 1
+    big = torch.zeros((1, 1 << 15), dtype=torch.int32)
+    with pytest.raises(ValueError, match="overflow"):
+        getattr(cuda_chain, scan)(big, big, big, big, big, 10)
+    cuda_chain._check((ok,) * 5, ok.device)
+
+
 def seed_batch(rng, P, NQ, NT, alphabet):
     """[P, NQ] query / [P, NT] target seed ids (pad -1) drawn from a small
     alphabet so seeds repeat, with positions ascending along each row."""

@@ -28,12 +28,17 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def anchor_batch(rng, P, A):
+def anchor_batch(rng, P, A, levels=False):
     """Random anchors: sorted positions, rank indices with swapped
-    neighbours, 85% valid (the recipe of test_align.py's Pallas test)."""
+    neighbours, 85% valid (the recipe of test_align.py's Pallas test).
+    With ``levels``, make_anchors_topk's layout: two anchors a query seed,
+    side by side, sharing its index and position."""
     qp = np.sort(rng.integers(0, 400, (P, A)), axis=1).astype(np.int32)
     tp = np.sort(rng.integers(0, 400, (P, A)), axis=1).astype(np.int32)
     qi = np.argsort(np.argsort(qp, axis=1), axis=1).astype(np.int32)
+    if levels:
+        qi //= 2
+        qp = np.repeat(qp[:, ::2], 2, axis=1)[:, :A]
     tj = np.argsort(np.argsort(tp, axis=1), axis=1).astype(np.int32)
     for p in range(P):
         for s in rng.integers(0, A - 1, 20):
@@ -96,10 +101,51 @@ def test_chain_scan_kernel_matches_plain_on_card(cuda_device, variant):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("levels", [False, True], ids=["distinct", "paired"])
+@pytest.mark.parametrize("A", [64, 96, 128, 256, 384, 640])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_chain_scan_modes_on_card(cuda_device, A, variant, levels):
+    """Each entry point (forward, forward + backward in one launch, lean)
+    equals its plain version exactly, at the register forms' A (64 to 384
+    = 32 x 12) and at one A above them (the shared-memory form), with
+    distinct query seeds and with two anchors a seed (the paired steps)."""
+    assert cuda_chain._lib().chain_scan_max_register_a() == 384
+    rng = np.random.default_rng(A + len(variant))
+    ins = [a.to(cuda_device) for a in anchor_batch(rng, 96, A, levels)]
+    for fn, mode in ((cuda_chain.chain_scan, "forward"),
+                     (cuda_chain.chain_scan_fb, "fb"),
+                     (cuda_chain.chain_scan_lean, "lean")):
+        before = cuda_chain.chain_scan.launches
+        got = fn(*ins, 10, variant)
+        ref = cuda_chain.chain_scan_plain(*ins, 10, variant, mode)
+        torch.cuda.synchronize()
+        assert cuda_chain.chain_scan.launches == before + 1
+        assert len(got) == len(ref) == cuda_chain.N_OUT[mode]
+        for i, (r, g) in enumerate(zip(ref, got)):
+            assert torch.equal(r, g), f"A={A} {variant} {mode}: output {i}"
+
+
+@pytest.mark.cuda
+def test_dp_from_anchors_is_one_launch_on_card(cuda_device):
+    from downpore_tpu_torch.ops import chain
+    rng = np.random.default_rng(3)
+    qi, tj, qp, tp, valid = (a.to(cuda_device)
+                             for a in anchor_batch(rng, 64, 128))
+    anchors = {"qi": qi, "tj": tj, "qp": qp, "tp": tp,
+               "valid": valid.bool(), "overflow": torch.zeros_like(qi[:, 0])}
+    before = cuda_chain.chain_scan.launches
+    got = chain.dp_from_anchors(anchors, 11)
+    assert cuda_chain.chain_scan.launches == before + 1
+    ref = chain.dp_from_anchors({k: v.cpu() for k, v in anchors.items()}, 11)
+    for key in ref:
+        assert torch.equal(got[key].cpu(), ref[key]), key
+
+
+@pytest.mark.cuda
 def test_map_batch_on_card_matches_cpu(cuda_device):
-    from downpore_tpu.core import Sequence
-    from downpore_tpu.utils.kmers import kmer_occurrences, score_seed_values
+    from downpore_tpu_torch.core import Sequence
     from downpore_tpu_torch.mapping import Mapper
+    from downpore_tpu_torch.utils import kmer_occurrences, score_seed_values
 
     rng = np.random.default_rng(42)
     bases = np.frombuffer(b"ACGT", np.uint8)

@@ -167,45 +167,94 @@ def test_help_map_matches_jax(capsys):
     assert "-data_parallel" in ref
 
 
+def _host_command_inputs(tmp, genome_path):
+    """Small inputs of the host commands: reads of the map fixture's
+    genome with their SAM alignment (``kmers``, k = 4, test_cli_golden.py's
+    recipe), 8 mutated copies of a 300-base template (``consensus`` and
+    ``align``) and two named sequences with ``subseq`` queries on stdin.
+    Returns (argv lists, stdin text)."""
+    genome = genome_path.read_text().split("\n")[1]
+    rng = np.random.default_rng(15)
+    reads, sam = tmp / "kreads.fastq", tmp / "kreads.sam"
+    with open(reads, "w") as fr, open(sam, "w") as fs:
+        fs.write("@HD\tVN:1.6\n")
+        for i in range(20):
+            pos = int(rng.integers(0, len(genome) - 600))
+            s = genome[pos:pos + 600]
+            fr.write(f"@kr{i}\n{s}\n+\n{'F' * len(s)}\n")
+            fs.write(f"kr{i}\t0\tgenome\t{pos + 1}\t60\t600M\t*\t0\t0"
+                     f"\t{s}\t{'F' * len(s)}\n")
+    template = rand_bases(300, rng)
+    copies = tmp / "copies.fasta"
+    copies.write_text("".join(f">c{i}\n{_cli_mutate(rng, template, 0.03)}\n"
+                              for i in range(8)))
+    subs = tmp / "subs.fasta"
+    subs.write_text(f">alpha one\n{rand_bases(500, rng)}\n"
+                    f">beta\n{rand_bases(400, rng)}\n")
+    stdin = ("10 20 false alpha\n10 20 true alpha\n390 10 false alpha\n"
+             "0 5 false beta\n0 5 false gamma\n")
+    return ([["help", "trim"], ["version"],
+             ["kmers", "-input", str(reads), "-alignment", str(sam),
+              "-reference", str(genome_path), "-k", "4"],
+             ["subseq", "-input", str(subs)],
+             ["consensus", "-input", str(copies), "-k", "5"],
+             ["align", "-input", str(copies), "-k", "5"]], stdin)
+
+
 def test_map_without_jax_subprocess(capsys, monkeypatch, cli_fixture,
                                    tmp_path):
-    """The port runs with jax blocked from import: sys.modules["jax"] =
-    None makes any ``import jax`` raise.  One process runs ``map``, then
-    ``overlap`` and ``correct`` (on the first 24 reads of
-    test_torch_correct.py's overlap fixture) and ``trim`` (on
-    test_trim_golden.py's fixture)."""
+    """The port runs with jax and the JAX package blocked from import:
+    sys.modules["jax"] = sys.modules["downpore_tpu"] = None makes any
+    ``import jax`` or ``import downpore_tpu...`` raise.  One process runs
+    all nine commands: ``map``, then ``overlap`` and ``correct`` (on the
+    first 24 reads of test_torch_correct.py's overlap fixture), ``trim``
+    (on test_trim_golden.py's fixture), ``help``, ``version``, ``kmers``,
+    ``subseq`` (queries on stdin), ``consensus`` and ``align``.  Its
+    stdout, and the seed values ``kmers`` writes, must be byte-identical
+    to the JAX CLI's on the same inputs."""
+    import io
     from test_torch_correct import overlap_records
     from test_torch_trim import golden_records, write_reads
     reads = tmp_path / "correct.fasta"
     reads.write_text("".join(f">{n}\n{s}\n"
                              for n, s in overlap_records()[:24]))
-    overlap = ["overlap", "-input", str(reads)]
-    correct = ["correct", "-input", str(reads)]
     trim = ["trim", "-input", write_reads(tmp_path / "trim.fastq",
                                           golden_records(), fastq=True)]
+    runs = [cli_fixture, ["overlap", "-input", str(reads)],
+            ["correct", "-input", str(reads)], trim]
+    jax_dir, port_dir = tmp_path / "jax", tmp_path / "port"
+    jax_dir.mkdir()
+    port_dir.mkdir()
+    genome = type(tmp_path)(cli_fixture[4])
+    host_jax, stdin = _host_command_inputs(jax_dir, genome)
+    host_port, _ = _host_command_inputs(port_dir, genome)
     monkeypatch.setenv(downpore_tpu_torch.DEVICE_ENV, "cpu")
-    torch_main(cli_fixture)
-    torch_main(overlap)
-    torch_main(correct)
-    torch_main(trim)
+    monkeypatch.setattr("sys.stdin", io.StringIO(stdin))
+    for argv in runs + host_jax:
+        jax_main(argv)
     expect = capsys.readouterr().out
     assert expect.count("_corrected") >= 1
     assert expect.count("\t255\n") > 24
     assert "\n@chimera_(left)\n" in expect
+    assert "gamma not found in" in expect
     code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['downpore_tpu'] = None; "
             "import torch; torch.set_num_threads(2); "
             "from downpore_tpu_torch.cli.main import main; "
-            f"main({cli_fixture!r}); main({overlap!r}); main({correct!r}); "
-            f"main({trim!r}); "
-            "assert not any(m == 'jax' or m.startswith('jax.') "
+            f"[main(a) for a in {runs + host_port!r}]; "
+            "assert not any(m.split('.')[0] in ('jax', 'downpore_tpu') "
             "for m, v in sys.modules.items() if v is not None)")
     env = dict(os.environ, DOWNPORE_TORCH_DEVICE="cpu",
                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
                                                              ""))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, env=env, cwd=REPO, timeout=300)
+                          text=True, env=env, cwd=REPO, timeout=300,
+                          input=stdin)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout == expect
+    assert proc.stdout == expect.replace(str(jax_dir), str(port_dir))
+    kmer_values = "kreads.sam_kmers_4.txt"
+    assert (port_dir / kmer_values).read_text() \
+        == (jax_dir / kmer_values).read_text()
 
 
 def test_map_cli_rejects_multi_device(monkeypatch, cli_fixture):
@@ -240,14 +289,17 @@ def _load_chip_smoke():
 
 
 def test_chip_smoke_imports_only_the_port():
-    """The smoke script reaches the host helpers through the port's
-    re-exports, never through the JAX package or jax itself."""
+    """The smoke script reaches the host helpers through the port, never
+    through the JAX package or jax itself, and the port's host helpers
+    are its own copies, not the JAX package's objects."""
     from downpore_tpu_torch.core import Sequence as PortSequence
     from downpore_tpu_torch.utils import kmer_occurrences as port_occ
     names = _load_chip_smoke().own_imports()
     assert "downpore_tpu_torch" in names
     assert not names & {"jax", "jaxlib", "downpore_tpu"}
-    assert PortSequence is Sequence and port_occ is kmer_occurrences
+    assert PortSequence is not Sequence and port_occ is not kmer_occurrences
+    assert PortSequence.__module__ == "downpore_tpu_torch.core.sequence"
+    assert port_occ.__module__ == "downpore_tpu_torch.utils.kmers"
 
 
 def test_chip_smoke_without_a_card_fails_without_result():

@@ -12,7 +12,7 @@ import torch
 
 import downpore_tpu_torch
 from downpore_tpu.cli.main import main as jax_main
-from downpore_tpu.io import seqio as seqio_mod
+from downpore_tpu_torch.io import seqio as seqio_mod
 from downpore_tpu.overlap import Overlapper as JaxOverlapper
 from downpore_tpu_torch.cli.main import main as torch_main
 from downpore_tpu_torch.overlap import Overlapper as TorchOverlapper
