@@ -21,7 +21,9 @@ Phases (any failure ends the run with a non-zero exit):
    measurements, map, overlap and trim), each beside its bound, and per
    1,000 pairs over a sweep of P (``CHAIN_SWEEP_P``, A = 128);
    ``cuda_band.update_bands`` must equal ``update_bands_plain`` at
-   B = 65,536 bands x 32 (test_align.py's recipe);
+   B = 65,536 bands x 32 (test_align.py's recipe), and the kernel alone
+   is timed with cold L2 (``BAND_L2_SETS`` input and output sets in
+   turn) beside its bytes bound;
    ``cuda_beam.beam_consensus`` must equal ``beam_consensus_plain`` on
    chains and n_valid at bench.py's consensus shape (1024 jobs x 6
    members x 500-base cores at 8% substitutions, k = 5, simple-k
@@ -84,6 +86,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import json
 import os
 import subprocess
@@ -207,7 +210,6 @@ def chain_raw(ins, k: int, variant: str, mode: str):
     """One launch of the chain kernel into preallocated outputs, through
     its C entry point: times the kernel, not the wrapper's allocations,
     and is not counted."""
-    import ctypes
     from downpore_tpu_torch.ops import cuda_chain
     lib = cuda_chain._lib()
     P, A = ins[0].shape
@@ -564,6 +566,10 @@ def phase_card_vs_cpu(mapper, reads, n: int = 256):
 
 
 B_BAND = 65536
+# input and output sets the band kernel's timed launches take in turn:
+# 8 x 25.4 MB, four times the H100's 50 MB L2, so every launch reads and
+# writes device memory, as the bound assumes
+BAND_L2_SETS = 8
 
 
 def phase_band(dev):
@@ -578,18 +584,63 @@ def phase_band(dev):
     ref_out, ref_m = cuda_band.update_bands_plain(ds, poffs, 300)
     torch.cuda.synchronize()
     err = max(int((out - ref_out).abs().max()), int((m - ref_m).abs().max()))
-    ms = cuda_ms(lambda: cuda_band.update_bands(ds, poffs, 300), 50)
+    wrapper_ms = cuda_ms(lambda: cuda_band.update_bands(ds, poffs, 300), 50)
+    warm = band_raw(ds, poffs, 300)
+    cold = band_raw(ds, poffs, 300, BAND_L2_SETS)
+    for run in (warm, cold):
+        run()
+        torch.cuda.synchronize()
+        if not (torch.equal(run.outs[0], out)
+                and torch.equal(run.outs[1], m)):
+            raise SystemExit("update_bands's C entry point differs from its "
+                             "wrapper")
+    warm_ms = min(cuda_ms(warm, 50), cuda_ms(warm, 50))
+    ms = min(cuda_ms(cold, 4 * BAND_L2_SETS), cuda_ms(cold, 4 * BAND_L2_SETS))
     plain_ms = cuda_ms(lambda: cuda_band.update_bands_plain(ds, poffs, 300),
                        10)
     # ~12 int32 operations a band lane (four terms, saturating adds, the
     # minimum, the threshold); bytes: two inputs, the bands and minima out
     b_ms, b_by = bound(12 * B_BAND * 32, (3 * B_BAND * 32 + B_BAND) * 4)
-    log(f"update_bands B={B_BAND} W=32: max_abs_err={err}; kernel "
-        f"{ms:.4f} ms, plain torch {plain_ms:.4f} ms; bound {b_ms:.4f} ms "
-        f"({b_by}), share {b_ms / ms:.3f}")
+    log(f"update_bands B={B_BAND} W=32: max_abs_err={err}; kernel alone "
+        f"{ms:.4f} ms with cold L2 ({BAND_L2_SETS} input and output sets in "
+        f"turn), {warm_ms:.4f} ms on one set (warm L2), through the wrapper "
+        f"{wrapper_ms:.4f} ms; plain torch {plain_ms:.4f} ms; bound "
+        f"{b_ms:.4f} ms ({b_by}), share {b_ms / ms:.3f}")
     if err != 0:
         raise SystemExit("update_bands differs from its plain version")
     return err, ms, plain_ms, b_ms, b_by
+
+
+def band_raw(ds, poffs, threshold: int, sets: int = 1):
+    """One launch of the band kernel through its C entry point into
+    preallocated outputs: times the kernel, not the wrapper's allocations,
+    and is not counted.  With ``sets`` > 1 each call takes the next of
+    ``sets`` copies of the inputs and outputs in turn, so a copy is out
+    of L2 when its turn comes; ``run.outs`` are the first set's."""
+    from downpore_tpu_torch.ops import _build
+    lib = _build.load("band_update")
+    lib.band_update_launch.argtypes = [ctypes.c_void_p] * 4 \
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.band_update_launch.restype = ctypes.c_int
+    B, W = ds.shape
+    bufs = [(ds, poffs) if i == 0 else (ds.clone(), poffs.clone())
+            for i in range(sets)]
+    bufs = [(d, p, torch.empty((B, W), dtype=torch.int32, device=ds.device),
+             torch.empty((B,), dtype=torch.int32, device=ds.device))
+            for d, p in bufs]
+    stream = torch.cuda.current_stream().cuda_stream
+    turn = [0]
+
+    def run():
+        d, p, out, m = bufs[turn[0] % sets]
+        turn[0] += 1
+        err = lib.band_update_launch(d.data_ptr(), p.data_ptr(),
+                                     out.data_ptr(), m.data_ptr(), B, W,
+                                     threshold, stream)
+        if err:
+            raise SystemExit(f"update_bands launch failed: {err}")
+    run.outs = bufs[0][2:]
+    return run
 
 
 def consensus_jobs(rng, n_jobs: int, n_members: int = 6,
@@ -742,11 +793,18 @@ def write_model(path: str, k: int = 5):
             f.write(f"{km}\t{rng.uniform(60.0, 120.0):.3f}\n")
 
 
+# the start of correct's stderr line when its device consensus raised and
+# it reran the host engine (the JAX command's behaviour, which the port
+# keeps): a card run that prints it timed the host engine, and fails
+FALLBACK_LINE = "Device consensus failed ("
+
+
 def run_correct(records, device: str, model: bool = False,
                 trim: bool = False):
     """``correct -input reads.fa`` through the port's CLI on ``device``
     (with ``-model`` and a ``write_model`` file when ``model``, with
-    ``-trim 1`` when ``trim``); returns (stdout, stderr)."""
+    ``-trim 1`` when ``trim``); returns (stdout, stderr).  On the card it
+    fails where the device consensus fell back to the host engine."""
     import io
     import tempfile
     from downpore_tpu_torch.cli.main import main as cli_main
@@ -764,6 +822,10 @@ def run_correct(records, device: str, model: bool = False,
         with contextlib.redirect_stdout(out), \
                 contextlib.redirect_stderr(err):
             cli_main(argv)
+    if device != "cpu" and FALLBACK_LINE in err.getvalue():
+        raise SystemExit("correct on the card fell back to the host engine: "
+                         + err.getvalue()[err.getvalue().index(
+                             FALLBACK_LINE):].splitlines()[0])
     return out.getvalue(), err.getvalue()
 
 
@@ -822,21 +884,67 @@ def recording(launch, plain, calls: list):
 BEAM_OPS_PER_CELL = 20   # distance, band terms, saturating adds, min, vote
 
 
-def beam_bound(seqs, lens, n_valid, beam: int, t_max: int, table=None):
+def beam_bound(seqs, lens, n_valid, beam: int, t_max: int, table=None,
+               shapes=None):
     """The beam kernel's bound on these inputs: each job's steps (its
     chain length) x 4 beam candidate evaluations (the 4 next k-mers of
-    each of the ``beam`` chains, scored once; the kernel's recomputation
-    of the kept beam after selection is not needed by the function) x its
-    members x 32 band lanes x BEAM_OPS_PER_CELL int32 operations; the
-    bytes are the inputs read once and the chains and their lengths
-    written once."""
-    members = lens.gt(0).sum(dim=1).long()
+    each of the ``beam`` chains, scored once; the kernel's recentring of
+    all 4 beam candidates, not only the kept ones, is not needed by the
+    function) x its members with k-mers x 32 band lanes x
+    BEAM_OPS_PER_CELL int32 operations; the bytes are the inputs read
+    once and the chains ([J, t_max]) and their lengths written once.
+    ``seqs`` and ``lens`` are [J, N, L] and [J, N], or flat with
+    ``shapes`` one (N, L, T) per job."""
+    if shapes is None:
+        members = lens.gt(0).sum(dim=1).long()
+    else:
+        members = torch.stack([r.gt(0).sum() for r in torch.split(
+            lens, [n for n, _, _ in shapes])]).long()
     ops = int((n_valid.long() * members).sum()) * 4 * beam * 32 \
         * BEAM_OPS_PER_CELL
-    J, N, L = seqs.shape
+    J = n_valid.numel()
     nbytes = (seqs.numel() + lens.numel() + J + J * (t_max + 1)) * 4 \
         + (table.numel() * 2 if table is not None else 0)
     return bound(ops, nbytes)
+
+
+def beam_raw(args):
+    """One launch of the beam kernel over a recorded ``cuda_beam._launch``
+    call's inputs (the ragged form), through its C entry point into
+    preallocated outputs, with its per-job parameters on the card already:
+    times the kernel, not the wrapper's allocations and upload, and is
+    not counted."""
+    from downpore_tpu_torch.ops import cuda_beam
+    seqs, lens, firsts, shapes, table, k, beam, thr, gap, sk = args[:10]
+    dev = seqs.device
+    lib = cuda_beam._lib()
+    J = len(shapes)
+    t_top = max(T for _, _, T in shapes)
+    meta, n_top, sw_top = cuda_beam.plan(shapes)
+    meta = meta.to(dev)
+    chains = torch.empty((J, t_top), dtype=torch.int32, device=dev)
+    n_valid = torch.empty((J,), dtype=torch.int32, device=dev)
+    rec = torch.empty((J, t_top, 4, beam), dtype=torch.int32, device=dev)
+    need = lib.beam_consensus_scratch_bytes(n_top, beam, sw_top, t_top)
+    scratch = torch.empty((J * need,), dtype=torch.uint8, device=dev) \
+        if need > 0 else None
+    warps = cuda_beam.beam_warps(
+        J, n_top, beam,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = lib.beam_consensus_launch(
+            seqs.data_ptr(), lens.data_ptr(), firsts.data_ptr(),
+            meta.data_ptr(), None if table is None else table.data_ptr(),
+            chains.data_ptr(), n_valid.data_ptr(), rec.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), J, n_top,
+            t_top, sw_top, k, beam, thr, gap, sk, 1, warps, stream)
+        if err:
+            raise SystemExit(f"beam_consensus launch failed: {err}")
+    run.outs = (chains, n_valid)
+    run.warps = warps
+    return run
 
 
 @contextlib.contextmanager
@@ -855,29 +963,47 @@ def uncounted():
         cuda_chain.MODE_LAUNCHES.update(modes)
 
 
-def check_recorded(calls) -> dict:
+def check_recorded(calls, times=None) -> dict:
     """Max abs error per kernel of the recorded launches against their
     plain versions on the same card tensors (fails on any difference),
-    and each launch's time (not counted) beside its bound."""
+    and each launch's time (the kernel alone, not counted) beside its
+    bound; a beam launch also with the steps its longest job took and the
+    time a step.  Each launch's ms is added to ``times[name]`` when
+    ``times`` is given."""
     errs = {}
     for plain, args, outs, launch in calls:
         ref = plain(*args)
         ref = ref if isinstance(ref, tuple) else (ref,)
         err = max(int((g - r).abs().max()) for g, r in zip(outs, ref))
-        name = plain.__name__.removesuffix("_plain")
+        name = plain.__name__.removesuffix("_plain").removesuffix("_ragged")
         errs[name] = max(errs.get(name, 0), err)
         scalars = [a for a in args if not torch.is_tensor(a) and a is not None]
+        extra = ""
         if name == "chain_scan":     # the kernel alone, as phase_kernel
             ms = cuda_ms(chain_raw(args[:5], *args[5:]), 5)
             b_ms, b_by = chain_bound(args[4], args[7])
-        else:
-            with uncounted():
-                ms = cuda_ms(lambda: launch(*args), 3)
-            b_ms, b_by = beam_bound(args[0], args[1], outs[1], args[5],
-                                    args[6], args[3])
-        log(f"  {name} {list(args[0].shape)} {scalars}: max_abs_err={err}; "
+            shape = list(args[0].shape)
+        else:                        # the ragged beam launch, kernel alone
+            run = beam_raw(args)
+            run()
+            if any(not torch.equal(o, r) for o, r in zip(run.outs, outs)):
+                raise SystemExit("beam_consensus's C entry point differs "
+                                 "from its wrapper on a recorded launch")
+            ms = min(cuda_ms(run, 3), cuda_ms(run, 3))
+            shapes = args[3]
+            b_ms, b_by = beam_bound(args[0], args[1], outs[1], args[6],
+                                    max(T for _, _, T in shapes), args[4],
+                                    shapes)
+            steps = int(outs[1].max())
+            shape = sorted({tuple(s) for s in shapes})
+            scalars = [len(shapes), run.warps] + scalars[1:]
+            extra = (f"; {steps} steps (longest job), "
+                     f"{ms * 1e3 / steps:.3f} us a step")
+        if times is not None:
+            times[name] = times.get(name, 0.0) + ms
+        log(f"  {name} {shape} {scalars}: max_abs_err={err}; "
             f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), share "
-            f"{b_ms / ms:.3f}")
+            f"{b_ms / ms:.3f}{extra}")
         if err != 0:
             raise SystemExit(f"{name} differs from its plain version at a "
                              f"shape of a main path")
@@ -907,7 +1033,8 @@ def phase_correct(dev):
             + [(cons_mod, "build_consensus_bulk", "consensus")]]
     subs += [(mod, "_launch", recording(mod._launch, plain, calls))
              for mod, plain in ((cuda_chain, cuda_chain.chain_scan_plain),
-                                (cuda_beam, cuda_beam.beam_consensus_plain))]
+                                (cuda_beam,
+                                 cuda_beam.beam_consensus_ragged_plain))]
     kernels = (cuda_chain.chain_scan, cuda_band.update_bands,
                cuda_beam.beam_consensus)
     with patched(subs):
@@ -943,10 +1070,15 @@ def phase_correct(dev):
         raise SystemExit(f"a consensus sequence shares < {CONTAIN_MIN} of "
                          f"its {CONTAIN_K}-mers with the genome")
     log(f"the run's {len(calls)} kernel launches against their plain "
-        f"versions:")
-    errs = check_recorded(calls)
+        f"versions (beam: [(N, L, T) of its jobs], [jobs, warps a job, "
+        f"k, beam, threshold, gap, simple_k, records]):")
+    kernel_ms = {}
+    errs = check_recorded(calls, kernel_ms)
     if set(errs) != {"chain_scan", "beam_consensus"}:
         raise SystemExit(f"recorded launches of {sorted(errs)} only")
+    log(f"correct's beam_consensus: {launches['beam_consensus']} launches, "
+        f"{kernel_ms['beam_consensus']:.4f} ms of kernel time in all "
+        f"(each launch re-timed alone on its recorded inputs)")
     return records, launches, errs
 
 

@@ -10,9 +10,13 @@ emits the base-space consensus sequences of the final round as fasta,
 which is what step 7 was meant to produce.  The overlap rounds run on the port's
 ``Overlapper`` and the consensus on the port's beam scan
 (``-device_consensus true``, the default) or on the host landmark engine
-(``false``).  A failure of the device engine ends the run: there is no
-fallback to the host engine.  ``-trim 1`` trims the reads first with the
-port's ``Trimmer`` at k = 5, as the JAX command does.
+(``false``).  Where the port computes on the CPU, any exception of the
+beam scan prints the JAX command's ``Device consensus failed (...);
+falling back to the host engine.`` to stderr and reruns the consensus on
+the host engine.  On the card the exception ends the run instead: a
+kernel that fails is never replaced by host work.
+``-trim 1`` trims the reads first with the port's ``Trimmer`` at k = 5,
+as the JAX command does.
 ``-data_parallel true`` raises until the multi-GPU port.
 """
 from __future__ import annotations
@@ -225,14 +229,25 @@ class CorrectCommand(Command):
             print("Preparing base-space consensus of all query results.",
                   file=sys.stderr)
             consensus_seqs = []
-            if parse_bool(args["device_consensus"]):
+            use_device = parse_bool(args["device_consensus"])
+            if use_device:
                 flat = [c for contigs in seed_consensus for c in contigs
                         if c is not None]
-                for _, cons in build_consensus_bulk(flat, all_seq, mod,
-                                                    device=device):
-                    if cons is not None:
-                        consensus_seqs.append(cons)
-            else:
+                try:
+                    for _, cons in build_consensus_bulk(flat, all_seq, mod,
+                                                        device=device):
+                        if cons is not None:
+                            consensus_seqs.append(cons)
+                except Exception as e:
+                    if device.type != "cpu":
+                        # on the card a kernel fault ends the run: the
+                        # card's work never moves to the host
+                        raise
+                    print(f"Device consensus failed ({e}); falling back "
+                          "to the host engine.", file=sys.stderr)
+                    use_device = False
+                    consensus_seqs = []
+            if not use_device:
                 for contigs in seed_consensus:
                     for contig in contigs:
                         if contig is None:

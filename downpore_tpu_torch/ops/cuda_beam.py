@@ -15,10 +15,15 @@ int32, -1 padded, n_valid [J] int32)``; with ``return_records`` it runs all
 ``t_max`` steps and returns the ``[J, t_max, 4, B]`` records (k-mer,
 parent, finished, cost per step and beam state) instead.
 
+``beam_consensus_ragged(seqs, lens, firsts, shapes, ...)`` takes jobs of
+differing shapes, one ``(N, L, T)`` each, as flat k-mers and lengths, and
+runs them all in one launch; ``beam_consensus`` is its uniform case.
+
 A tensor on the CPU goes to ``beam_consensus_plain``, the XLA engine's
-step written once over the batch ``[J, B, 4, N, W]``.  A CUDA tensor
-launches the kernel in ``csrc/beam_consensus.cu`` or raises; there is no
-fallback, no size-based route and no switch.
+step written once over the batch ``[J, B, 4, N, W]`` (the ragged form
+groups its jobs by shape first).  A CUDA tensor launches the kernel in
+``csrc/beam_consensus.cu`` or raises; there is no fallback and no switch.
+``beam_warps`` picks the kernel's warps per job from the launch's size.
 """
 from __future__ import annotations
 
@@ -205,20 +210,74 @@ def traceback_plain(rec, t_max: int):
     return chains, (t_end + 1).to(torch.int32)
 
 
-def _check(seqs, lens, firsts, table, k: int, beam: int, simple_k: int):
-    if seqs.dim() != 3:
-        raise ValueError(f"beam_consensus takes seqs [J, N, L], got "
-                         f"{tuple(seqs.shape)}")
-    J, N, _ = seqs.shape
-    if tuple(lens.shape) != (J, N) or tuple(firsts.shape) != (J,):
-        raise ValueError("beam_consensus takes lens [J, N] and firsts [J]")
-    for a in (seqs, lens, firsts):
-        if a.dtype != torch.int32:
-            raise TypeError(f"beam_consensus takes int32, got {a.dtype}")
-        if a.device != seqs.device:
-            raise ValueError("beam_consensus inputs must share one device")
-        if not a.is_contiguous():
-            raise ValueError("beam_consensus inputs must be contiguous")
+def beam_consensus_ragged_plain(seqs, lens, firsts, shapes, table, k: int,
+                                beam: int, threshold: int, gap_cost: int,
+                                simple_k: int, return_records: bool = False):
+    """The ragged form's plain version: jobs grouped by their (N, L, T),
+    each group one ``beam_consensus_plain`` scan over ``[nj, N, L]``, the
+    chains scattered into ``[J, max T]`` with -1 past each job's own.  With
+    ``return_records`` the jobs must share one shape (see ``_launch``)."""
+    J = len(shapes)
+    dev = seqs.device
+    blocks, rows = _offsets(shapes)
+    groups = {}
+    for j, shape in enumerate(shapes):
+        groups.setdefault(tuple(shape), []).append(j)
+    if return_records:
+        if len(groups) > 1:
+            raise ValueError("records mode takes jobs of one shape")
+        N, L, T = shapes[0]
+        return beam_consensus_plain(seqs.view(J, N, L), lens.view(J, N),
+                                    firsts, table, k, beam, T, threshold,
+                                    gap_cost, simple_k, True)
+    t_top = max((T for _, _, T in shapes), default=0)
+    chains = torch.full((J, t_top), -1, dtype=torch.int32, device=dev)
+    n_valid = torch.zeros((J,), dtype=torch.int32, device=dev)
+    for (N, L, T), js in groups.items():
+        g_seqs = torch.stack([seqs[blocks[j]:blocks[j] + N * L]
+                              for j in js]).view(len(js), N, L)
+        g_lens = torch.stack([lens[rows[j]:rows[j] + N] for j in js])
+        idx = torch.tensor(js, device=dev)
+        ch, nv = beam_consensus_plain(g_seqs, g_lens, firsts[idx], table, k,
+                                      beam, T, threshold, gap_cost, simple_k)
+        chains[idx, :T] = ch
+        n_valid[idx] = nv
+    return chains, n_valid
+
+
+def _offsets(shapes):
+    """Start of each job's ``[N, L]`` block in the flat k-mers and of its
+    ``[N]`` row in the flat lengths."""
+    blocks, rows = [0], [0]
+    for N, L, _ in shapes:
+        blocks.append(blocks[-1] + N * L)
+        rows.append(rows[-1] + N)
+    return blocks, rows
+
+
+# warps an SM holds that the beam kernel aims to keep busy: half of
+# Hopper's 64 resident, so a few jobs' blocks fit beside each other on an SM
+WARPS_PER_SM = 32
+MIN_WARPS = 4
+MAX_WARPS = 32
+
+
+def beam_warps(J: int, N: int, beam: int, sm_count: int) -> int:
+    """Warps per job of a beam-kernel launch over ``J`` jobs of up to
+    ``N`` members on a card of ``sm_count`` SMs: as many as WARPS_PER_SM
+    on every SM spread over the jobs allow, between MIN_WARPS and
+    MAX_WARPS, no more than the ``beam x N`` (beam state, member) tasks of
+    a step, then evened out so every warp takes the same number of tasks a
+    step (an H100's 132 SMs: 1-2 jobs at N = 12, beam 4: 24 warps, 2 tasks
+    each; 1024 jobs: 4 warps)."""
+    tasks = max(1, beam * N)
+    w = max(MIN_WARPS, min(MAX_WARPS, sm_count * WARPS_PER_SM // max(J, 1)))
+    w = min(w, max(MIN_WARPS, tasks))
+    rounds = -(-tasks // w)
+    return max(MIN_WARPS, -(-tasks // rounds))
+
+
+def _check_scalars(k: int, beam: int, simple_k: int, table, dev):
     if not 1 <= k <= 7:
         raise ValueError(f"beam_consensus takes 1 <= k <= 7, got {k}")
     if not 1 <= beam <= MAX_BEAM:
@@ -229,48 +288,119 @@ def _check(seqs, lens, firsts, table, k: int, beam: int, simple_k: int):
     else:
         if table is None or table.dtype != torch.int16 \
                 or tuple(table.shape) != (4 ** k, 4 ** k) \
-                or table.device != seqs.device or not table.is_contiguous():
+                or table.device != dev or not table.is_contiguous():
             raise ValueError("the table measure takes a contiguous "
                              "[4^k, 4^k] int16 table on the seqs' device")
 
 
-def _launch(seqs, lens, firsts, table, k, beam, t_max, threshold, gap_cost,
-            simple_k, return_records):
-    J, N, L = seqs.shape
-    dev = seqs.device
-    chains = torch.empty((J, t_max), dtype=torch.int32, device=dev)
-    n_valid = torch.empty((J,), dtype=torch.int32, device=dev)
-    rec = torch.empty((J, t_max, 4, beam), dtype=torch.int32, device=dev)
-    if J == 0:
-        return rec if return_records else (chains, n_valid)
+def _check_tensors(*arrays):
+    for a in arrays:
+        if a.dtype != torch.int32:
+            raise TypeError(f"beam_consensus takes int32, got {a.dtype}")
+        if a.device != arrays[0].device:
+            raise ValueError("beam_consensus inputs must share one device")
+        if not a.is_contiguous():
+            raise ValueError("beam_consensus inputs must be contiguous")
+
+
+def _check(seqs, lens, firsts, table, k: int, beam: int, simple_k: int):
+    if seqs.dim() != 3:
+        raise ValueError(f"beam_consensus takes seqs [J, N, L], got "
+                         f"{tuple(seqs.shape)}")
+    J, N, _ = seqs.shape
+    if tuple(lens.shape) != (J, N) or tuple(firsts.shape) != (J,):
+        raise ValueError("beam_consensus takes lens [J, N] and firsts [J]")
+    _check_tensors(seqs, lens, firsts)
+    _check_scalars(k, beam, simple_k, table, seqs.device)
+
+
+def _check_ragged(seqs, lens, firsts, shapes, table, k: int, beam: int,
+                  simple_k: int):
+    shapes = [tuple(int(v) for v in s) for s in shapes]
+    if any(len(s) != 3 or min(s) < 1 for s in shapes):
+        raise ValueError("beam_consensus_ragged takes one (N, L, T) of "
+                         "positive ints per job")
+    blocks, rows = _offsets(shapes)
+    if seqs.dim() != 1 or lens.dim() != 1 \
+            or tuple(firsts.shape) != (len(shapes),):
+        raise ValueError("beam_consensus_ragged takes flat seqs and lens "
+                         "and firsts [J]")
+    if seqs.numel() != blocks[-1] or lens.numel() != rows[-1]:
+        raise ValueError(f"the shapes need {blocks[-1]} k-mers and "
+                         f"{rows[-1]} lengths, got {seqs.numel()} and "
+                         f"{lens.numel()}")
+    _check_tensors(seqs, lens, firsts)
+    _check_scalars(k, beam, simple_k, table, seqs.device)
+    return shapes
+
+
+def plan(shapes):
+    """The kernel's per-job parameters for ``shapes``: ``meta [J, 8]``
+    int64 (k-mer offset, length offset, N, L, T, sw, hi, 0; sw and hi
+    ``_win_params(L)``) on the CPU, the largest N and the largest sw."""
+    blocks, rows = _offsets(shapes)
+    meta = []
+    for j, (N, L, T) in enumerate(shapes):
+        sw, hi = _win_params(L)
+        meta.append((blocks[j], rows[j], N, L, T, sw, hi, 0))
+    return (torch.tensor(meta, dtype=torch.int64).view(-1, 8),
+            max(N for N, _, _ in shapes), max(m[5] for m in meta))
+
+
+def _lib():
     lib = _build.load("beam_consensus")
     fn = lib.beam_consensus_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.beam_consensus_member_bytes.argtypes = [ctypes.c_int] * 2
-        lib.beam_consensus_member_bytes.restype = ctypes.c_longlong
-        lib.beam_consensus_max_smem.argtypes = []
-        lib.beam_consensus_max_smem.restype = ctypes.c_int
+        lib.beam_consensus_scratch_bytes.argtypes = [ctypes.c_int] * 4
+        lib.beam_consensus_scratch_bytes.restype = ctypes.c_longlong
         lib.beam_consensus_error_string.argtypes = [ctypes.c_int]
         lib.beam_consensus_error_string.restype = ctypes.c_char_p
-    sw, hi = _win_params(L)
+    return lib
+
+
+def _launch(seqs, lens, firsts, shapes, table, k, beam, threshold, gap_cost,
+            simple_k, return_records):
+    """One launch over the ragged job set (every job in one grid).  In
+    records mode the jobs must share one (N, L, T): the records are
+    ``[J, T, 4, B]``."""
+    J = len(shapes)
+    dev = seqs.device
+    if return_records and len(set(shapes)) > 1:
+        raise ValueError("records mode takes jobs of one shape")
+    if gap_cost < 0 or threshold < 1:
+        # the kernel's bands then stay in [0, FULL], which its one-reduction
+        # row minimum and _argmin_last rely on
+        raise ValueError("the beam kernel takes gap_cost >= 0 and "
+                         "threshold >= 1")
+    t_top = max((T for _, _, T in shapes), default=1)
+    chains = torch.empty((J, t_top), dtype=torch.int32, device=dev)
+    n_valid = torch.empty((J,), dtype=torch.int32, device=dev)
+    rec = torch.empty((J, t_top, 4, beam), dtype=torch.int32, device=dev)
+    if J == 0:
+        return rec if return_records else (chains, n_valid)
+    meta, n_top, sw_top = plan(shapes)
+    lib = _lib()
     with torch.cuda.device(dev):
-        # per-member state lives in shared memory when one job's fits
-        # (next to ~1 KB of small state); else in a device scratch
-        member = lib.beam_consensus_member_bytes(N, beam)
+        meta = meta.to(dev)
+        need = lib.beam_consensus_scratch_bytes(n_top, beam, sw_top, t_top)
+        if need < 0:
+            raise RuntimeError("beam_consensus: no current CUDA device")
         scratch = None
-        if member + 1024 > lib.beam_consensus_max_smem():
-            scratch = torch.empty((J * member,), dtype=torch.uint8,
-                                  device=dev)
+        if need > 0:   # the candidate store does not fit in shared memory
+            scratch = torch.empty((J * need,), dtype=torch.uint8, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(seqs.data_ptr(), lens.data_ptr(), firsts.data_ptr(),
-                 None if table is None else table.data_ptr(),
-                 chains.data_ptr(), n_valid.data_ptr(), rec.data_ptr(),
-                 None if scratch is None else scratch.data_ptr(),
-                 J, N, L, t_max, k, beam, threshold, gap_cost, simple_k, sw,
-                 hi, 0 if return_records else 1, stream)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        err = lib.beam_consensus_launch(
+            seqs.data_ptr(), lens.data_ptr(), firsts.data_ptr(),
+            meta.data_ptr(), None if table is None else table.data_ptr(),
+            chains.data_ptr(), n_valid.data_ptr(), rec.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), J, n_top,
+            t_top, sw_top, k, beam, threshold, gap_cost, simple_k,
+            0 if return_records else 1, beam_warps(J, n_top, beam, sms),
+            stream)
     if err != 0:
         msg = lib.beam_consensus_error_string(err).decode()
         raise RuntimeError(
@@ -280,22 +410,51 @@ def _launch(seqs, lens, firsts, table, k, beam, t_max, threshold, gap_cost,
     return rec if return_records else (chains, n_valid)
 
 
+def _route(dev):
+    if dev.type == "cpu":
+        return "plain"
+    if dev.type != "cuda":
+        raise ValueError(f"beam_consensus has no kernel for {dev.type!r}")
+    return "kernel"
+
+
 def beam_consensus(seqs, lens, firsts, table, k: int, beam: int,
                    t_max: int, threshold: int, gap_cost: int,
                    simple_k: int, return_records: bool = False):
-    """The beam scan over ``J`` jobs; see the module docstring.  CPU
-    tensors run ``beam_consensus_plain``; CUDA tensors launch the kernel
-    (``beam_consensus.launches`` counts those launches)."""
+    """The beam scan over ``J`` jobs of one shape; see the module
+    docstring.  CPU tensors run ``beam_consensus_plain``; CUDA tensors
+    launch the kernel once (``beam_consensus.launches`` counts those
+    launches): the uniform case of ``beam_consensus_ragged``."""
     _check(seqs, lens, firsts, table, k, beam, simple_k)
-    dev = seqs.device
-    if dev.type == "cpu":
+    if _route(seqs.device) == "plain":
         return beam_consensus_plain(seqs, lens, firsts, table, k, beam,
                                     t_max, threshold, gap_cost, simple_k,
                                     return_records)
-    if dev.type != "cuda":
-        raise ValueError(f"beam_consensus has no kernel for {dev.type!r}")
-    return _launch(seqs, lens, firsts, table, k, beam, t_max, threshold,
-                   gap_cost, simple_k, return_records)
+    J, N, L = seqs.shape
+    return _launch(seqs.view(-1), lens.view(-1), firsts, [(N, L, t_max)] * J,
+                   table, k, beam, threshold, gap_cost, simple_k,
+                   return_records)
+
+
+def beam_consensus_ragged(seqs, lens, firsts, shapes, table, k: int,
+                          beam: int, threshold: int, gap_cost: int,
+                          simple_k: int):
+    """The beam scan over jobs of differing shapes in one launch.
+    ``shapes`` holds one ``(N, L, T)`` per job; ``seqs`` is the flat
+    concatenation of the jobs' ``[N, L]`` int32 k-mer blocks, ``lens``
+    of their ``[N]`` lengths, ``firsts [J]``.  Each job computes what
+    ``beam_consensus`` computes on its own ``[1, N, L]`` with ``t_max =
+    T``.  Returns ``(chains [J, max T], -1 padded, n_valid [J])``.  CPU
+    tensors run ``beam_consensus_ragged_plain``; CUDA tensors launch the
+    kernel once (counted in ``beam_consensus.launches``)."""
+    shapes = _check_ragged(seqs, lens, firsts, shapes, table, k, beam,
+                           simple_k)
+    if _route(seqs.device) == "plain":
+        return beam_consensus_ragged_plain(seqs, lens, firsts, shapes, table,
+                                           k, beam, threshold, gap_cost,
+                                           simple_k)
+    return _launch(seqs, lens, firsts, shapes, table, k, beam, threshold,
+                   gap_cost, simple_k, False)
 
 
 beam_consensus.launches = 0

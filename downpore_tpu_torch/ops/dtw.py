@@ -167,17 +167,19 @@ def consensus_kmers_bulk(jobs: List[List[np.ndarray]], table: np.ndarray,
                          k: int, beam: int = 4, threshold: int = 300,
                          gap_cost: int = 8, simple_k: int = 0,
                          device=None) -> List[np.ndarray]:
-    """Many consensus jobs, one beam-scan call per shape bucket.
+    """Many consensus jobs in one beam-scan call.
 
     Empty members are dropped and empty jobs skipped (their result is an
-    empty array).  Jobs bucket by (member count rounded up to 4, longest
-    member rounded up to 128): the rounded length sets the job's window
-    schedule (``_win_params``) and scan length (``_t_max``), exactly as
-    in the JAX package.  Returns consensus k-mer arrays in job order."""
-    from .cuda_beam import beam_consensus
+    empty array).  Each job keeps the shape of its bucket in the JAX
+    package, (member count rounded up to 4, longest member rounded up to
+    128): the rounded length sets its window schedule (``_win_params``)
+    and scan length (``_t_max``), exactly as there.  The buckets were the
+    JAX package's compiled shapes; here every job goes into one ragged
+    scan (``cuda_beam.beam_consensus_ragged``: one kernel launch on a
+    card).  Returns consensus k-mer arrays in job order."""
+    from .cuda_beam import beam_consensus_ragged
     dev = resolve_device(device)
-    tab = _device_table(table, simple_k, dev)
-    buckets = {}
+    entries, shapes, blocks, rows, firsts = [], [], [], [], []
     for ji, job in enumerate(jobs):
         job = [s for s in job if len(s)]
         if not job:
@@ -185,24 +187,23 @@ def consensus_kmers_bulk(jobs: List[List[np.ndarray]], table: np.ndarray,
         N = ((len(job) + 3) // 4) * 4
         L = max(len(s) for s in job)
         L = ((L + 127) // 128) * 128
-        buckets.setdefault((N, L), []).append((ji, job))
+        seq, lens, first = _pad_job(job, N, L)
+        entries.append(ji)
+        shapes.append((N, L, _t_max(L)))
+        blocks.append(seq.reshape(-1))
+        rows.append(lens)
+        firsts.append(first)
     results = [np.zeros(0, np.int32)] * len(jobs)
-    inflight = []
-    for (N, L), entries in sorted(buckets.items()):
-        nj = len(entries)
-        seqs = np.empty((nj, N, L), np.int32)
-        lens = np.empty((nj, N), np.int32)
-        firsts = np.empty(nj, np.int32)
-        for i, (_, job) in enumerate(entries):
-            seqs[i], lens[i], firsts[i] = _pad_job(job, N, L)
-        chains, ns = beam_consensus(
-            torch.from_numpy(seqs).to(dev), torch.from_numpy(lens).to(dev),
-            torch.from_numpy(firsts).to(dev), tab, k, beam, _t_max(L),
-            threshold, gap_cost, simple_k)
-        inflight.append((entries, firsts, chains, ns))
-    for entries, firsts, chains, ns in inflight:
-        chains = chains.cpu().numpy()
-        ns = ns.cpu().numpy()
-        for i, (ji, _) in enumerate(entries):
-            results[ji] = _assemble(chains[i], int(ns[i]), int(firsts[i]))
+    if not entries:
+        return results
+    chains, ns = beam_consensus_ragged(
+        torch.from_numpy(np.concatenate(blocks)).to(dev),
+        torch.from_numpy(np.concatenate(rows)).to(dev),
+        torch.tensor(firsts, dtype=torch.int32, device=dev), shapes,
+        _device_table(table, simple_k, dev), k, beam, threshold, gap_cost,
+        simple_k)
+    chains = chains.cpu().numpy()
+    ns = ns.cpu().numpy()
+    for i, ji in enumerate(entries):
+        results[ji] = _assemble(chains[i], int(ns[i]), firsts[i])
     return results

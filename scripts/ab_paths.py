@@ -1,12 +1,17 @@
-"""Run two trees of the port in turns on one card and compare them: the
-map, overlap and trim paths end to end, and the chain DP through each
-tree's own entry points.
+"""Run two trees of the port in turns on one card and compare them, on one
+of two case sets.
 
     mkdir -p _chipcopy/a && git archive <commit> | tar -x -C _chipcopy/a
     python3 scripts/ab_paths.py _chipcopy/a _chipcopy/b [--rounds 3]
+    python3 scripts/ab_paths.py _chipcopy/a _chipcopy/b --cases beam \\
+        [--rounds 2] [--jobs PKL] [--clocks]
 
 Each turn is one process that imports one tree (its
-``downpore_tpu_torch`` and its ``chip_smoke.py``) and runs on the card:
+``downpore_tpu_torch``, and for ``paths`` its ``chip_smoke.py``) and runs
+on the card.
+
+``--cases paths`` (the default): the map, overlap and trim paths end to
+end, and the chain DP through each tree's own entry points:
 
 * the chain DP on the inputs of this script's ``chip_smoke.CHAIN_SHAPES``
   (the same recipe and seed for both trees) through the tree's own entry
@@ -20,10 +25,33 @@ Each turn is one process that imports one tree (its
   ``phase_trim``, whose own checks must pass and whose logs give the
   end-to-end numbers (map bases/s, overlap and trim wall seconds).
 
+``--cases beam``: the beam-consensus kernel.  First this script's own tree
+runs ``correct`` on the card on ``chip_smoke.correct_case()`` (2048 reads
+of 5-10 kb from a 1 Mb genome) with ``consensus_kmers_bulk`` wrapped to
+keep its arguments (``chiprun_out/ab_beam/jobs.pkl``; ``--jobs`` reuses an
+earlier file).  Then each turn:
+
+* per (N, L) bucket of those jobs (the JAX package's bucketing: members
+  rounded up to 4, length up to 128; both trees pad a job so), runs the
+  tree's ``cuda_beam.beam_consensus`` on the bucket's ``[J, N, L]``: the
+  kernel's device time under ``torch.profiler`` (the mean of its events,
+  5 calls, the smaller of two), the steps its longest job takes (the
+  largest n_valid) and the time a step;
+* the same at ``chip_smoke.consensus_jobs`` ``[1024, 8, 512]``, simple-k;
+* the tree's ``dtw.consensus_kmers_bulk`` on all the kept jobs: host clock
+  to a synchronised end (the smaller of 3 calls), the tree's beam launches
+  in one call and their device time in all.
+
+A digest of the chains must be the same in every turn.  With ``--clocks``
+a last process builds tree b's kernel with ``-DBEAM_CLOCKS`` and prints,
+per case, block 0's cycles a step in phase A, at the first barrier, in the
+selection and at the last barrier (warp 0's view; the kernel's
+``beam_consensus_clocks``).
+
 The turns go a, b, b, a, a, b, ... (``--rounds`` turns of each tree), so
 neither tree always runs first.  Each turn's log goes to
-``chiprun_out/ab_paths/``; the summary (every turn's value and, per tree,
-the range) is printed and written to ``chiprun_out/ab_paths/summary.json``.
+``chiprun_out/ab_<cases>/``; the summary (every turn's value and, per
+tree, the range) is printed and written to ``summary.json`` there.
 """
 from __future__ import annotations
 
@@ -32,13 +60,14 @@ import hashlib
 import importlib.util
 import json
 import os
+import pickle
 import re
+import shutil
 import subprocess
 import sys
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-OUT_DIR = os.path.join("chiprun_out", "ab_paths")
 K = 10
 METRICS = (
     # (key, regex over a turn's log, group)
@@ -49,17 +78,40 @@ METRICS = (
     ("trim_wall_s", r"^trim on the card: wall ([\d.]+) s", 1),
     ("trim_mb_per_s", r"^trim on the card: wall [\d.]+ s = ([\d.]+) MB/s", 1),
 )
+BEAM_KERNEL = "beam_consensus_kernel"
+TURN_TIMEOUT = 1200    # seconds a turn may take
+
+
+def out_dir(cases: str) -> str:
+    return os.path.join(HERE, "chiprun_out", f"ab_{cases}")
+
+
+JOBS = os.path.join(out_dir("beam"), "jobs.pkl")
 
 
 def _recipe():
-    """This script's own chip_smoke.py (its shapes, anchor recipe and
-    timer), loaded under another name than the tree's."""
+    """This script's own chip_smoke.py (its shapes, recipes and timer),
+    loaded under another name than the tree's."""
     spec = importlib.util.spec_from_file_location(
         "ab_recipe", os.path.join(HERE, "chip_smoke.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
+
+def _enter(tree: str) -> str:
+    """Put ``tree`` first on the import path and make it the cwd."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    os.chdir(tree)
+    import downpore_tpu_torch
+    if not downpore_tpu_torch.__file__.startswith(tree):
+        raise SystemExit(f"imported {downpore_tpu_torch.__file__}, not "
+                         f"{tree}'s")
+    return tree
+
+
+# ---- the paths case set ----
 
 def chain_times(recipe) -> dict:
     import numpy as np
@@ -94,18 +146,13 @@ def chain_times(recipe) -> dict:
     return out
 
 
-def turn(tree: str) -> int:
-    """One turn: the chain DP and the three phases of ``tree``."""
+def paths_turn(tree: str, recipe) -> dict:
+    """The chain DP and the three phases of ``tree``."""
     import torch
-    tree = os.path.abspath(tree)
-    sys.path.insert(0, tree)
-    os.chdir(tree)
-    recipe = _recipe()
     import chip_smoke as smoke
     if not smoke.__file__.startswith(tree):
         raise SystemExit(f"imported {smoke.__file__}, not {tree}'s")
     dev = torch.device("cuda")
-    print(f"AB tree {tree}: {smoke.nvidia_smi()}", flush=True)
     result = {"chain": chain_times(recipe), "phase_s": {}}
     for name in ("phase_slice", "phase_overlap", "phase_trim"):
         t0 = time.perf_counter()
@@ -113,63 +160,15 @@ def turn(tree: str) -> int:
         del got
         result["phase_s"][name] = time.perf_counter() - t0
         torch.cuda.empty_cache()
-    print("AB_RESULT " + json.dumps(result), flush=True)
-    return 0
+    return result
 
 
-def run_turn(tree: str, label: str, i: int) -> dict:
-    log_path = os.path.join(OUT_DIR, f"turn{i:02d}_{label}.log")
-    t0 = time.perf_counter()
-    with open(log_path, "w") as log:
-        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                             "--turn", tree], stdout=log,
-                            stderr=subprocess.STDOUT).returncode
-    with open(log_path) as f:
-        text = f.read()
-    if rc != 0:
-        raise SystemExit(f"turn {i} ({label}, {tree}) failed with {rc}; "
-                         f"see {log_path}:\n{text[-3000:]}")
-    rec = {"turn": i, "tree": label, "seconds": time.perf_counter() - t0}
-    for key, pat, g in METRICS:
-        m = re.search(pat, text, re.M)
-        if m is None:
-            raise SystemExit(f"turn {i} ({label}): no {key} in {log_path}")
-        rec[key] = float(m.group(g))
-    res = json.loads(re.search(r"^AB_RESULT (.*)$", text, re.M).group(1))
-    rec["chain"] = res["chain"]
-    rec["phase_s"] = res["phase_s"]
-    return rec
-
-
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("trees", nargs="*", help="tree a, tree b")
-    ap.add_argument("--rounds", type=int, default=3)
-    ap.add_argument("--turn", help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if args.turn:
-        return turn(args.turn)
-    if len(args.trees) != 2:
-        ap.error("give two trees")
-    import torch
-    if not torch.cuda.is_available():
-        print("ab_paths: needs one CUDA card", file=sys.stderr)
-        return 2
-    os.makedirs(OUT_DIR, exist_ok=True)
-    trees = {"a": args.trees[0], "b": args.trees[1]}
-    order = [("a", "b", "b", "a")[j % 4] for j in range(2 * args.rounds)]
-    recs = []
-    for i, label in enumerate(order):
-        rec = run_turn(trees[label], label, i)
-        recs.append(rec)
-        print(json.dumps(rec), flush=True)
-    summary = {"trees": trees, "turns": recs, "range": {}}
+def paths_summary(recs, trees, summary) -> None:
     for key, _, _ in METRICS:
         for label in trees:
             vals = [r[key] for r in recs if r["tree"] == label]
             summary["range"][f"{key} {label}"] = [min(vals), max(vals)]
-    names = list(recs[0]["chain"])
-    for name in names:
+    for name in recs[0]["chain"]:
         digests = {r["chain"][name]["score_sha256"] for r in recs}
         if len(digests) != 1:
             raise SystemExit(f"the trees' chain scores differ at {name}")
@@ -178,10 +177,284 @@ def main() -> int:
                     if r["tree"] == label]
             summary["range"][f"chain {name} {label}"] = [min(vals),
                                                          max(vals)]
-    with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
+
+
+# ---- the beam case set ----
+
+def capture() -> None:
+    """``correct`` on the correct case with ``consensus_kmers_bulk``'s
+    arguments kept in JOBS."""
+    sys.path.insert(0, HERE)
+    from downpore_tpu_torch.consensus import consensus as cons
+    recipe = _recipe()
+    _, records = recipe.correct_case()
+    kept = []
+    orig = cons.consensus_kmers_bulk
+
+    def keep(jobs, table, k, **kw):
+        kept.append((jobs, table, k, {n: v for n, v in kw.items()
+                                      if n != "device"}))
+        return orig(jobs, table, k, **kw)
+    cons.consensus_kmers_bulk = keep
+    try:
+        recipe.run_correct(records, "cuda")
+    finally:
+        cons.consensus_kmers_bulk = orig
+    with open(JOBS, "wb") as f:
+        pickle.dump(kept, f)
+    print(f"AB kept {len(kept)} consensus_kmers_bulk calls, "
+          f"{sum(len(j) for j, *_ in kept)} jobs", flush=True)
+
+
+def kernel_ms(fn, reps: int = 5) -> float:
+    """Device time of the beam kernel's launches in one call of ``fn``,
+    the mean of ``reps`` calls under torch.profiler (after one warm
+    call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evts = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and BEAM_KERNEL in e.name]
+    if not evts:
+        raise SystemExit("the profiler saw no beam kernel on the device")
+    return sum(e.time_range.elapsed_us() for e in evts) / reps / 1e3
+
+
+def buckets(jobs):
+    """The jobs' (N, L) buckets, as the JAX package forms them."""
+    out = {}
+    for job in jobs:
+        job = [s for s in job if len(s)]
+        if not job:
+            continue
+        N = ((len(job) + 3) // 4) * 4
+        L = ((max(len(s) for s in job) + 127) // 128) * 128
+        out.setdefault((N, L), []).append(job)
+    return sorted(out.items())
+
+
+def beam_cases(kept, recipe, dev):
+    """(name, beam_consensus's arguments) of every kept bucket and of the
+    bench bucket."""
+    import numpy as np
+    import torch
+    from downpore_tpu_torch.ops import dtw
+    specs = []
+    for jobs, table, k, kw in kept:
+        tab = dtw._device_table(table, kw.get("simple_k", 0), dev)
+        for (N, L), bjobs in buckets(jobs):
+            specs.append((f"correct [{len(bjobs)}, {N}, {L}]", bjobs, N, L,
+                          tab, k, kw))
+    bench = recipe.consensus_jobs(np.random.default_rng(recipe.SEED + 30),
+                                  1024)
+    specs.append(("bench [1024, 8, 512] simple-k", bench, 8, 512, None, 5,
+                  {"threshold": 200, "gap_cost": 5, "simple_k": 5}))
+    cases = []
+    for name, bjobs, N, L, tab, k, kw in specs:
+        arrs = [np.stack(a) for a in zip(*(dtw._pad_job(j, N, L)
+                                           for j in bjobs))]
+        seqs, lens, firsts = (torch.from_numpy(np.ascontiguousarray(
+            a, np.int32)).to(dev) for a in arrs)
+        cases.append((name, (seqs, lens, firsts, tab, k, 4, dtw._t_max(L),
+                             kw["threshold"], kw["gap_cost"],
+                             kw["simple_k"])))
+    return cases
+
+
+def beam_turn(tree: str, recipe) -> dict:
+    """``tree``'s beam kernel at the kept buckets and the bench bucket, and
+    its ``consensus_kmers_bulk``."""
+    import numpy as np
+    import torch
+    from downpore_tpu_torch.ops import cuda_beam, dtw
+    dev = torch.device("cuda")
+    with open(JOBS, "rb") as f:
+        kept = pickle.load(f)
+    digest = hashlib.sha256()
+    result = {"shapes": {}, "bulk": []}
+    for name, args in beam_cases(kept, recipe, dev):
+        chains, ns = cuda_beam.beam_consensus(*args)
+        digest.update(chains.cpu().numpy().tobytes())
+        ms = min(kernel_ms(lambda: cuda_beam.beam_consensus(*args)),
+                 kernel_ms(lambda: cuda_beam.beam_consensus(*args)))
+        steps = int(ns.max())
+        result["shapes"][name] = {"ms": ms, "steps": steps,
+                                  "us_per_step": ms * 1e3 / steps}
+        print(f"AB {name}: kernel {ms:.4f} ms, {steps} steps, "
+              f"{ms * 1e3 / steps:.3f} us a step", flush=True)
+    for jobs, table, k, kw in kept:
+        def bulk():
+            return dtw.consensus_kmers_bulk(jobs, table, k, device=dev, **kw)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bulk()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        before = cuda_beam.beam_consensus.launches
+        out = bulk()
+        launches = cuda_beam.beam_consensus.launches - before
+        for a in out:
+            digest.update(np.asarray(a, np.int32).tobytes())
+        dev_ms = kernel_ms(bulk, 3)
+        result["bulk"].append({"wall_ms": min(walls) * 1e3,
+                               "launches": launches, "kernel_ms": dev_ms})
+        print(f"AB consensus_kmers_bulk ({len(jobs)} jobs): wall "
+              f"{min(walls) * 1e3:.3f} ms, {launches} beam launches, "
+              f"{dev_ms:.4f} ms of beam kernel time", flush=True)
+    result["sha256"] = digest.hexdigest()[:16]
+    return result
+
+
+def beam_summary(recs, trees, summary) -> None:
+    if len({r["sha256"] for r in recs}) != 1:
+        raise SystemExit("the trees' consensus chains differ")
+    for name in recs[0]["shapes"]:
+        for label in trees:
+            for key in ("ms", "us_per_step"):
+                vals = [r["shapes"][name][key] for r in recs
+                        if r["tree"] == label]
+                summary["range"][f"{name} {key} {label}"] = [min(vals),
+                                                             max(vals)]
+    for label in trees:
+        for key in ("wall_ms", "launches", "kernel_ms"):
+            vals = [b[key] for r in recs if r["tree"] == label
+                    for b in r["bulk"]]
+            summary["range"][f"consensus_kmers_bulk {key} {label}"] = [
+                min(vals), max(vals)]
+
+
+def clocks(tree: str) -> int:
+    """``tree``'s beam kernel built with -DBEAM_CLOCKS: block 0's cycles a
+    step by phase, per beam case."""
+    import ctypes
+    import tempfile
+    import torch
+    _enter(tree)
+    recipe = _recipe()
+    from downpore_tpu_torch.ops import _build, cuda_beam
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        so = os.path.join(tmp, "beam_clocks.so")
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DBEAM_CLOCKS",
+                        "-o", so, os.path.join(_build.CSRC,
+                                               "beam_consensus.cu")],
+                       check=True)
+        lib = ctypes.CDLL(so)
+        _build._LIBS["beam_consensus"] = lib
+        cuda_beam._lib()
+        lib.beam_consensus_clocks.argtypes = [ctypes.c_void_p]
+        with open(JOBS, "rb") as f:
+            kept = pickle.load(f)
+        for name, args in beam_cases(kept, recipe, dev):
+            cuda_beam.beam_consensus(*args)
+            torch.cuda.synchronize()
+            out = (ctypes.c_longlong * 5)()
+            if lib.beam_consensus_clocks(out):
+                raise SystemExit("beam_consensus_clocks failed")
+            steps = max(out[4], 1)
+            print(f"AB clocks {name}: {out[4]} steps; cycles a step: phase A "
+                  f"{out[0] / steps:.0f}, barrier 1 {out[1] / steps:.0f}, "
+                  f"selection {out[2] / steps:.0f}, barrier 2 "
+                  f"{out[3] / steps:.0f}", flush=True)
+    return 0
+
+
+CASES = {"paths": (paths_turn, paths_summary),
+         "beam": (beam_turn, beam_summary)}
+
+
+def turn(tree: str, cases: str) -> int:
+    """One turn of ``cases`` on ``tree``."""
+    tree = _enter(tree)
+    recipe = _recipe()
+    print(f"AB tree {tree}: {recipe.nvidia_smi()}", flush=True)
+    result = CASES[cases][0](tree, recipe)
+    print("AB_RESULT " + json.dumps(result), flush=True)
+    return 0
+
+
+def run_turn(tree: str, label: str, i: int, cases: str) -> dict:
+    log_path = os.path.join(out_dir(cases), f"turn{i:02d}_{label}.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                             "--cases", cases, "--turn", tree], stdout=log,
+                            stderr=subprocess.STDOUT,
+                            timeout=TURN_TIMEOUT).returncode
+    with open(log_path) as f:
+        text = f.read()
+    if rc != 0:
+        raise SystemExit(f"turn {i} ({label}, {tree}) failed with {rc}; "
+                         f"see {log_path}:\n{text[-3000:]}")
+    rec = {"turn": i, "tree": label, "seconds": time.perf_counter() - t0}
+    if cases == "paths":
+        for key, pat, g in METRICS:
+            m = re.search(pat, text, re.M)
+            if m is None:
+                raise SystemExit(f"turn {i} ({label}): no {key} in "
+                                 f"{log_path}")
+            rec[key] = float(m.group(g))
+    rec.update(json.loads(re.search(r"^AB_RESULT (.*)$", text,
+                                    re.M).group(1)))
+    return rec
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trees", nargs="*", help="tree a, tree b")
+    ap.add_argument("--cases", choices=sorted(CASES), default="paths")
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--jobs", help="beam: a jobs.pkl of an earlier run, "
+                    "instead of a capture")
+    ap.add_argument("--clocks", action="store_true",
+                    help="beam: also print tree b's cycles a step by phase")
+    ap.add_argument("--turn", help=argparse.SUPPRESS)
+    ap.add_argument("--clocks-turn", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.turn:
+        return turn(args.turn, args.cases)
+    if args.clocks_turn:
+        return clocks(args.clocks_turn)
+    if len(args.trees) != 2:
+        ap.error("give two trees")
+    if args.cases != "beam" and (args.jobs or args.clocks):
+        ap.error("--jobs and --clocks belong to --cases beam")
+    import torch
+    if not torch.cuda.is_available():
+        print("ab_paths: needs one CUDA card", file=sys.stderr)
+        return 2
+    os.makedirs(out_dir(args.cases), exist_ok=True)
+    if args.cases == "beam":
+        if not args.jobs:
+            capture()
+        elif os.path.abspath(args.jobs) != JOBS:
+            shutil.copyfile(args.jobs, JOBS)
+    trees = {"a": args.trees[0], "b": args.trees[1]}
+    order = [("a", "b", "b", "a")[j % 4] for j in range(2 * args.rounds)]
+    recs = []
+    for i, label in enumerate(order):
+        rec = run_turn(trees[label], label, i, args.cases)
+        recs.append(rec)
+        print(json.dumps(rec), flush=True)
+    summary = {"trees": trees, "turns": recs, "range": {}}
+    CASES[args.cases][1](recs, trees, summary)
+    with open(os.path.join(out_dir(args.cases), "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     for key, (lo, hi) in summary["range"].items():
         print(f"{key}: {lo:.6g} .. {hi:.6g}")
+    if args.clocks:
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--clocks-turn", trees["b"]], check=True,
+                       timeout=TURN_TIMEOUT)
     return 0
 
 

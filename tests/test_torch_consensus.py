@@ -260,6 +260,52 @@ def test_consensus_kmers_wrappers_match_jax(simple_k):
                                                     simple_k=simple_k))
 
 
+def ragged_jobs():
+    """Jobs of three (N, L) buckets, interleaved: (4, 128), (8, 256) and
+    (12, 256)."""
+    rng = np.random.default_rng(15)
+    err = dict(sub=0.05, ins=0.01, dele=0.01)
+    small = make_jobs(rng, 2, 60, n_members=3, **err)
+    mid = make_jobs(rng, 2, 180, n_members=6, **err)
+    wide = make_jobs(rng, 1, 200, n_members=10, **err)
+    return [small[0], mid[0], wide[0], small[1], mid[1]]
+
+
+def test_ragged_plain_matches_buckets_and_jax():
+    """consensus_kmers_bulk's one ragged scan equals the JAX package's
+    per-bucket scans, and the ragged plain scan equals each bucket's own
+    uniform plain scan, chains -1 past the bucket's t_max."""
+    jobs = ragged_jobs()
+    table = SimpleMeasure(K).pair_table()
+    ref = jdtw.consensus_kmers_bulk(jobs, table, K, simple_k=K)
+    got = tdtw.consensus_kmers_bulk(jobs, table, K, simple_k=K,
+                                    device="cpu")
+    for a, b in zip(ref, got):
+        assert np.array_equal(a, b)
+    shapes, blocks, rows, firsts = [], [], [], []
+    for job in jobs:
+        N = ((len(job) + 3) // 4) * 4
+        L = ((max(len(s) for s in job) + 127) // 128) * 128
+        seq, lens, first = tdtw._pad_job(job, N, L)
+        shapes.append((N, L, tdtw._t_max(L)))
+        blocks.append(seq.reshape(-1))
+        rows.append(lens)
+        firsts.append(first)
+    assert len(set(shapes)) >= 3
+    chains, ns = cuda_beam.beam_consensus_ragged(
+        torch.from_numpy(np.concatenate(blocks)),
+        torch.from_numpy(np.concatenate(rows)),
+        torch.tensor(firsts, dtype=torch.int32), shapes, None, K, 4,
+        THRESHOLD, GAP, K)
+    assert chains.shape == (len(jobs), max(T for _, _, T in shapes))
+    for j, (N, L, T) in enumerate(shapes):
+        one_c, one_n = plain(blocks[j].reshape(1, N, L), rows[j][None],
+                             np.array(firsts[j:j + 1], np.int32), None, 4, T,
+                             K)
+        assert torch.equal(chains[j, :T], one_c[0]) and ns[j] == one_n[0]
+        assert bool((chains[j, T:] == -1).all())
+
+
 def make_contigs():
     """Contigs of 5 noisy copies of random truths (test_align.py's
     recipe, with reverse-complemented parts), plus one with two parts."""

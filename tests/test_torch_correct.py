@@ -95,6 +95,33 @@ def test_correct_cli_matches_jax(capsys, monkeypatch, reads_path,
     assert got.out.count(">") >= 3
 
 
+def test_correct_device_failure_falls_back_like_jax(capsys, monkeypatch,
+                                                   reads_path):
+    """A device consensus that raises: both CLIs print the JAX command's
+    fallback line, rerun the host landmark engine and give the same
+    stdout, stderr and exit code."""
+    import downpore_tpu.consensus as jax_consensus
+    import downpore_tpu_torch.consensus as torch_consensus
+
+    def fail(*a, **kw):
+        raise RuntimeError("device lost")
+    monkeypatch.setenv(downpore_tpu_torch.DEVICE_ENV, "cpu")
+    monkeypatch.setattr(jax_consensus, "build_consensus_bulk", fail)
+    monkeypatch.setattr(torch_consensus, "build_consensus_bulk", fail)
+    argv = ["correct", "-input", reads_path]
+    ref_rc = jax_main(argv)
+    ref = capsys.readouterr()
+    got_rc = torch_main(argv)
+    got = capsys.readouterr()
+    line = ("Device consensus failed (device lost); falling back to the "
+            "host engine.")
+    assert line in ref.err.splitlines()
+    assert (got.out, got.err, got_rc) == (ref.out, ref.err, ref_rc)
+    # the fallback's output is the host engine's
+    torch_main(argv + ["-device_consensus", "false"])
+    assert capsys.readouterr().out == got.out and got.out.count(">") >= 3
+
+
 def test_correct_plain_path_launches_no_kernel(capsys, monkeypatch,
                                                reads_path):
     """On the CPU the beam scan is the plain version: no kernel launch."""

@@ -9,6 +9,8 @@ marked ``cuda`` skip without a card.  Kernel and plain version must agree
 exactly (tolerance 0: integer DP and float32 votes computed in one
 order).
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -360,6 +362,60 @@ def test_beam_consensus_checks_inputs():
                                  8, 0)
 
 
+def test_beam_consensus_ragged_checks_inputs():
+    seqs, lens, firsts, shapes = ragged_set(np.random.default_rng(1),
+                                            [(4, 40), (8, 60)])
+    args = (None, 5, 4, 300, 8, 5)
+    with pytest.raises(ValueError):     # one shape short
+        cuda_beam.beam_consensus_ragged(seqs, lens, firsts[:1], shapes[:1],
+                                        *args)
+    with pytest.raises(ValueError):     # k-mers of another size
+        cuda_beam.beam_consensus_ragged(seqs[:-1].contiguous(), lens, firsts,
+                                        shapes, *args)
+    with pytest.raises(ValueError):     # (N, L, T) per job
+        cuda_beam.beam_consensus_ragged(seqs, lens, firsts,
+                                        [s[:2] for s in shapes], *args)
+    with pytest.raises(TypeError):
+        cuda_beam.beam_consensus_ragged(seqs.long(), lens, firsts, shapes,
+                                        *args)
+    with pytest.raises(ValueError):     # records mode takes one shape
+        cuda_beam.beam_consensus_ragged_plain(seqs, lens, firsts, shapes,
+                                              *args, return_records=True)
+    for thr, gap in ((0, 8), (300, -1)):  # the kernel's band range
+        with pytest.raises(ValueError):
+            cuda_beam._launch(seqs, lens, firsts, shapes, None, 5, 4, thr,
+                              gap, 5, False)
+    chains, ns = cuda_beam.beam_consensus_ragged(seqs, lens, firsts, shapes,
+                                                 *args)
+    assert chains.shape == (2, t_max_of(60)) and ns.shape == (2,)
+
+
+def test_beam_consensus_uniform_is_the_ragged_case():
+    """beam_consensus on [J, N, L] equals the ragged form with J equal
+    shapes (plain versions, CPU)."""
+    seqs, lens, firsts = beam_jobs(np.random.default_rng(2), 3, 4, 48)
+    t_max = t_max_of(48)
+    args = (None, 5, 4, 300, 8, 5)
+    chains, ns = cuda_beam.beam_consensus(seqs, lens, firsts, None, 5, 4,
+                                          t_max, 300, 8, 5)
+    r_chains, r_ns = cuda_beam.beam_consensus_ragged(
+        seqs.view(-1), lens.view(-1), firsts, [(4, 48, t_max)] * 3, *args)
+    assert torch.equal(chains, r_chains) and torch.equal(ns, r_ns)
+
+
+@pytest.mark.parametrize("J, N, beam, sms, warps", [
+    (1, 12, 4, 132, 24), (2, 12, 4, 132, 24), (1, 8, 4, 132, 32),
+    (1, 4, 4, 132, 16), (2, 4, 4, 132, 16), (1024, 8, 4, 132, 4),
+    (40, 4, 4, 132, 16), (6, 5, 8, 132, 20), (300, 12, 4, 132, 12),
+    (1, 600, 4, 132, 32), (1, 1, 1, 132, 4), (300, 12, 4, 66, 7),
+    (300, 12, 4, 100, 10), (40, 12, 4, 20, 16)])
+def test_beam_warps_geometry(J, N, beam, sms, warps):
+    """Few jobs get up to 32 warps each, evened over the beam x N tasks of
+    a step; many jobs get fewer (at least 4) so the card's ``sms`` SMs
+    stay full."""
+    assert cuda_beam.beam_warps(J, N, beam, sms) == warps
+
+
 @pytest.mark.cuda
 def test_update_bands_kernel_matches_plain_on_card(cuda_device):
     rng = np.random.default_rng(21)
@@ -380,29 +436,235 @@ def simple_table(k=5):
     return _simple_distance(ar[:, None], ar[None, :], k).to(torch.int16)
 
 
+def t_max_of(L):
+    return ((int(L * 1.3) + 32 + 31) // 32) * 32
+
+
+# (J, N, L, beam): the earlier mixed shapes, correct's recorded shapes
+# (1-2 jobs, 4-12 members, L 640 and 1024) and bench.py's 1024-job bucket
+BEAM_SHAPES = [(40, 4, 128, 4), (9, 8, 640, 4), (6, 5, 128, 8)] + [
+    (J, N, L, 4) for J in (1, 2) for N in (4, 8, 12) for L in (640, 1024)
+] + [(1024, 8, 512, 4)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", BEAM_SHAPES,
+                         ids=["x".join(map(str, s)) for s in BEAM_SHAPES])
 @pytest.mark.parametrize("measure", ["simple", "table"])
-def test_beam_consensus_kernel_matches_plain_on_card(cuda_device, measure):
-    rng = np.random.default_rng(5)
+def test_beam_consensus_kernel_matches_plain_on_card(cuda_device, measure,
+                                                     shape):
+    """Chains and n_valid (early exit, traceback in the kernel) and the
+    records of all t_max steps equal the plain version's."""
+    J, N, L, beam = shape
+    rng = np.random.default_rng(5 + J + N + L)
     simple_k = 5 if measure == "simple" else 0
     table = None if simple_k else simple_table().to(cuda_device)
-    for J, N, L, beam in ((40, 4, 128, 4), (9, 8, 640, 4), (6, 5, 128, 8)):
-        seqs, lens, firsts = (a.to(cuda_device)
-                              for a in beam_jobs(rng, J, N, L))
-        t_max = ((int(L * 1.3) + 32 + 31) // 32) * 32
-        args = (seqs, lens, firsts, table, 5, beam, t_max, 300, 8, simple_k)
-        before = cuda_beam.beam_consensus.launches
-        chains, ns = cuda_beam.beam_consensus(*args)
-        rec = cuda_beam.beam_consensus(*args, return_records=True)
-        ref_chains, ref_ns = cuda_beam.beam_consensus_plain(*args)
-        ref_rec = cuda_beam.beam_consensus_plain(*args, return_records=True)
-        torch.cuda.synchronize()
-        assert cuda_beam.beam_consensus.launches == before + 2
-        assert torch.equal(ns, ref_ns) and torch.equal(chains, ref_chains)
-        assert torch.equal(rec, ref_rec), (J, N, L, beam)
-        # early exit + in-kernel traceback == the full records' traceback
-        walked = cuda_beam.traceback_plain(rec, t_max)
-        assert torch.equal(walked[0], chains) and torch.equal(walked[1], ns)
+    seqs, lens, firsts = (a.to(cuda_device) for a in beam_jobs(rng, J, N, L))
+    t_max = t_max_of(L)
+    args = (seqs, lens, firsts, table, 5, beam, t_max, 300, 8, simple_k)
+    before = cuda_beam.beam_consensus.launches
+    chains, ns = cuda_beam.beam_consensus(*args)
+    rec = cuda_beam.beam_consensus(*args, return_records=True)
+    ref_chains, ref_ns = cuda_beam.beam_consensus_plain(*args)
+    ref_rec = cuda_beam.beam_consensus_plain(*args, return_records=True)
+    torch.cuda.synchronize()
+    assert cuda_beam.beam_consensus.launches == before + 2
+    assert torch.equal(ns, ref_ns) and torch.equal(chains, ref_chains)
+    assert torch.equal(rec, ref_rec)
+    # early exit + in-kernel traceback == the full records' traceback
+    walked = cuda_beam.traceback_plain(rec, t_max)
+    assert torch.equal(walked[0], chains) and torch.equal(walked[1], ns)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 4, 6])
+def test_beam_consensus_kernel_other_simple_k_on_card(cuda_device, k):
+    """The simple measure's other schedules (the kernel sums them as
+    popcounts under per-weight masks) equal the plain version."""
+    rng = np.random.default_rng(30 + k)
+    seqs, lens, firsts = beam_jobs(rng, 3, 6, 200)
+    seqs = torch.where(seqs >= 0, seqs & (4 ** k - 1), seqs)
+    firsts = seqs[:, 0, 0].contiguous()
+    args = (seqs.to(cuda_device), lens.to(cuda_device),
+            firsts.to(cuda_device), None, k, 4, t_max_of(200), 300, 8, k)
+    got = cuda_beam.beam_consensus(*args)
+    ref = cuda_beam.beam_consensus_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def ragged_set(rng, specs):
+    """A ragged job set: per (N, L) in ``specs`` one beam_jobs job, as flat
+    k-mers and lengths, firsts and (N, L, t_max) shapes."""
+    blocks, rows, firsts, shapes = [], [], [], []
+    for N, L in specs:
+        seqs, lens, first = beam_jobs(rng, 1, N, L)
+        blocks.append(seqs.reshape(-1))
+        rows.append(lens.reshape(-1))
+        firsts.append(first)
+        shapes.append((N, L, t_max_of(L)))
+    return (torch.cat(blocks), torch.cat(rows), torch.cat(firsts), shapes)
+
+
+RAGGED_SPECS = [(8, 640), (4, 1024), (12, 640), (8, 640), (4, 128),
+                (12, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("measure", ["simple", "table"])
+def test_beam_consensus_ragged_one_launch_on_card(cuda_device, measure):
+    """Jobs of five (N, L, T) shapes in one launch equal the ragged plain
+    version (each job its own bucket's uniform scan)."""
+    simple_k = 5 if measure == "simple" else 0
+    table = None if simple_k else simple_table().to(cuda_device)
+    seqs, lens, firsts, shapes = ragged_set(np.random.default_rng(17),
+                                            RAGGED_SPECS)
+    seqs, lens, firsts = (a.to(cuda_device) for a in (seqs, lens, firsts))
+    args = (seqs, lens, firsts, shapes, table, 5, 4, 300, 8, simple_k)
+    before = cuda_beam.beam_consensus.launches
+    chains, ns = cuda_beam.beam_consensus_ragged(*args)
+    torch.cuda.synchronize()
+    assert cuda_beam.beam_consensus.launches == before + 1
+    ref_chains, ref_ns = cuda_beam.beam_consensus_ragged_plain(*args)
+    assert torch.equal(ns, ref_ns) and torch.equal(chains, ref_chains)
+    assert chains.shape == (len(shapes), t_max_of(1024))
+
+
+EMU_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "cuda_emu")
+
+
+@pytest.fixture(scope="module")
+def emulated_kernel(tmp_path_factory):
+    """csrc/beam_consensus.cu compiled for the CPU against
+    tests/cuda_emu/cuda_runtime.h (g++, C++20): its dynamic shared array
+    made a pointer to the emulated block's buffer and its launch a call of
+    emu_launch; loaded with ctypes."""
+    import ctypes
+    import re
+    import shutil
+    import subprocess
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs g++ to build the emulated kernel")
+    with open(os.path.join(_build.CSRC, "beam_consensus.cu")) as f:
+        src = f.read()
+    src, n_smem = re.subn(
+        r"extern __shared__ __align__\(16\) unsigned char smem\[\];",
+        "unsigned char* smem = emu_smem;", src)
+    src, n_launch = re.subn(
+        r"(\w+)<<<([^,]+),\s*([^,]+),\s*([^,]+),\s*\(cudaStream_t\)stream"
+        r">>>\((\w+)\);", r"emu_launch(\1, \2, \3, \4, \5);", src)
+    assert (n_smem, n_launch) == (1, 1)
+    out = tmp_path_factory.mktemp("beam_emu")
+    cpp, so = out / "beam_consensus.cpp", out / "beam_consensus.so"
+    cpp.write_text(src)
+    proc = subprocess.run(
+        [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+         "-I", EMU_DIR, "-I", _build.CSRC, "-o", str(so), str(cpp),
+         "-lpthread"], capture_output=True, text=True)
+    if proc.returncode and "<barrier>" in proc.stderr:
+        pytest.skip("g++ has no C++20 <barrier>")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lib = ctypes.CDLL(str(so))
+    lib.beam_consensus_launch.argtypes = [ctypes.c_void_p] * 9 \
+        + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    lib.beam_consensus_launch.restype = ctypes.c_int
+    lib.beam_consensus_scratch_bytes.argtypes = [ctypes.c_int] * 4
+    lib.beam_consensus_scratch_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def emulated_launch(lib, seqs, lens, firsts, shapes, table, simple_k,
+                    records):
+    """cuda_beam._launch's call of the kernel (k = 5, beam 4, threshold
+    300, gap 8, beam_warps' warps on an H100's 132 SMs) on CPU tensors,
+    into the emulation."""
+    J, beam = len(shapes), 4
+    t_top = max(T for _, _, T in shapes)
+    meta, n_top, sw_top = cuda_beam.plan(shapes)
+    chains = torch.full((J, t_top), -7, dtype=torch.int32)
+    n_valid = torch.full((J,), -7, dtype=torch.int32)
+    rec = torch.full((J, t_top, 4, beam), -7, dtype=torch.int32)
+    need = lib.beam_consensus_scratch_bytes(n_top, beam, sw_top, t_top)
+    scratch = torch.zeros(J * need, dtype=torch.uint8) if need else None
+    err = lib.beam_consensus_launch(
+        seqs.data_ptr(), lens.data_ptr(), firsts.data_ptr(), meta.data_ptr(),
+        None if table is None else table.data_ptr(), chains.data_ptr(),
+        n_valid.data_ptr(), rec.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), J, n_top, t_top,
+        sw_top, 5, beam, 300, 8, simple_k, 0 if records else 1,
+        cuda_beam.beam_warps(J, n_top, beam, 132), None)
+    assert err == 0
+    return rec if records else (chains, n_valid)
+
+
+@pytest.mark.parametrize("measure", ["simple", "table"])
+def test_beam_kernel_source_emulated_matches_plain(emulated_kernel,
+                                                   measure):
+    """The kernel's source, run on the CPU under the emulation of its CUDA
+    intrinsics, equals the plain version: chains and n_valid (early exit,
+    in-kernel traceback) and the records of all steps, with a member that
+    has no k-mers (bucket padding)."""
+    simple_k = 5 if measure == "simple" else 0
+    table = None if simple_k else simple_table()
+    seqs, lens, firsts = beam_jobs(np.random.default_rng(40), 2, 4, 96)
+    seqs[1, 3] = -1
+    lens[1, 3] = 0
+    T = t_max_of(96)
+    shapes = [(4, 96, T)] * 2
+    args = (seqs.view(-1), lens.view(-1), firsts, shapes, table, simple_k)
+    chains, ns = emulated_launch(emulated_kernel, *args, False)
+    plain = (seqs, lens, firsts, table, 5, 4, T, 300, 8, simple_k)
+    ref_chains, ref_ns = cuda_beam.beam_consensus_plain(*plain)
+    assert torch.equal(ns, ref_ns) and torch.equal(chains, ref_chains)
+    rec = emulated_launch(emulated_kernel, *args, True)
+    assert torch.equal(rec, cuda_beam.beam_consensus_plain(
+        *plain, return_records=True))
+
+
+@pytest.mark.parametrize("route", ["shared", "scratch"])
+def test_beam_kernel_source_emulated_ragged(emulated_kernel, route):
+    """One emulated launch over jobs of three shapes, one long enough that
+    its window base moves (restaged in shared memory), equals the ragged
+    plain version, on the shared route and on the device-scratch route
+    (the emulated card's shared memory cut to 4 KB)."""
+    import ctypes
+    seqs, lens, firsts, shapes = ragged_set(np.random.default_rng(41),
+                                            [(4, 64), (6, 520), (3, 96)])
+    limit = ctypes.c_int.in_dll(emulated_kernel, "emu_max_smem")
+    saved = limit.value
+    if route == "scratch":
+        limit.value = 4096
+    try:
+        got = emulated_launch(emulated_kernel, seqs, lens, firsts, shapes,
+                              None, 5, False)
+    finally:
+        limit.value = saved
+    ref = cuda_beam.beam_consensus_ragged_plain(seqs, lens, firsts, shapes,
+                                                None, 5, 4, 300, 8, 5)
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0])
+
+
+@pytest.mark.cuda
+def test_consensus_kmers_bulk_is_one_launch_on_card(cuda_device):
+    """consensus_kmers_bulk over jobs of three buckets: one launch, the
+    CPU's consensus k-mers."""
+    from downpore_tpu_torch.ops import dtw
+    rng = np.random.default_rng(18)
+    jobs = []
+    for n, core in ((3, 500), (6, 700), (9, 500), (3, 90)):
+        seqs, lens, _ = beam_jobs(rng, 1, n, core)
+        jobs.append([seqs[0, i, :lens[0, i]].numpy() for i in range(n)])
+    table = simple_table().numpy().view(np.uint16)
+    before = cuda_beam.beam_consensus.launches
+    got = dtw.consensus_kmers_bulk(jobs, table, 5, simple_k=5,
+                                   device=cuda_device)
+    assert cuda_beam.beam_consensus.launches == before + 1
+    ref = dtw.consensus_kmers_bulk(jobs, table, 5, simple_k=5, device="cpu")
+    for a, b in zip(got, ref):
+        assert np.array_equal(a, b)
+    assert all(len(a) > 50 for a in got)
 
 
 @pytest.mark.cuda
@@ -433,7 +695,29 @@ def test_correct_on_card_matches_cpu(cuda_device):
     spec.loader.exec_module(smoke)
     records = smoke.golden_overlap_records()[:32]
     before = cuda_beam.beam_consensus.launches
-    on_card, _ = smoke.run_correct(records, "cuda")
+    on_card, err = smoke.run_correct(records, "cuda")
+    assert smoke.FALLBACK_LINE not in err
     assert cuda_beam.beam_consensus.launches > before
     on_cpu, _ = smoke.run_correct(records, "cpu")
     assert on_card == on_cpu and on_card.count(">") >= 1
+
+
+@pytest.mark.cuda
+def test_correct_on_card_does_not_fall_back(cuda_device, monkeypatch):
+    """On the card a device consensus that raises ends the run: the host
+    engine never takes over the kernel's work (on the CPU the JAX
+    command's fallback line and host rerun are kept)."""
+    import importlib.util
+    import os
+    import downpore_tpu_torch.consensus as torch_consensus
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(repo, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    def fail(*a, **kw):
+        raise RuntimeError("kernel failed")
+    monkeypatch.setattr(torch_consensus, "build_consensus_bulk", fail)
+    with pytest.raises(RuntimeError, match="kernel failed"):
+        smoke.run_correct(smoke.golden_overlap_records()[:32], "cuda")
