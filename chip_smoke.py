@@ -1,4 +1,4 @@
-"""Smoke run of the torch port's map and correct paths on one CUDA card.
+"""Smoke run of the torch port's paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -72,7 +72,18 @@ Phases (any failure ends the run with a non-zero exit):
    package's recorded run (6 rounds, 721,379 lines); wall split into
    k-mer counting, round prep, find and final checks; resident bytes per
    round; the first round's chain launches held against the plain version;
-   device busy time and idle share of round 2 under ``torch.profiler``.
+   device busy time and idle share of round 2 under ``torch.profiler``;
+9. the multi-device paths on the one card (``phase_grid``), on grids that
+   place several shards on it: the k-mer histogram on a 2 x 2 grid against
+   the host bincount; ``Mapper(mesh=make_mesh(2, 2, [card] * 4))`` on the
+   map slice's genome and reads (PAF equal to the unsharded mapper's, the
+   warm-up pass's chain launches held against the plain version, three
+   timed passes with the chain launch count, resident bytes per shard);
+   the ``map`` CLI with ``-data_parallel true`` (the 1 x 1 grid) against no
+   flag, and ``-seed_shards 2`` against the JAX package's error; seed-
+   sharded ``overlap`` (2 x 2) on the first GRID_OV_READS reads of the
+   overlap case against the unsharded run; ``trim -data_parallel true``
+   (1 x 1 and a 2-way data grid) against the golden digest.
 
 Every launch a phase records is held against its plain version and
 timed (not counted) beside its bound.  It prints the kernel table as one
@@ -1335,19 +1346,19 @@ OV_RANGES = (
 )
 
 
-def write_overlap_reads(path: str) -> int:
+def write_overlap_reads(path: str, n_reads: int = OV_READS) -> int:
     """bench.py's ``bench_overlap_gb`` input (``_make_genome_reads``):
     OV_READS reads of OV_READ_LEN bases from a OV_GENOME-base genome at
-    OV_ERR substitutions, odd reads reverse-complemented.  Returns the
-    file's size in bytes."""
+    OV_ERR substitutions, odd reads reverse-complemented (the first
+    ``n_reads`` of them).  Returns the file's size in bytes."""
     genome = BASES[np.random.default_rng(SEED + 50).integers(0, 4,
                                                              OV_GENOME)]
     rng = np.random.default_rng(SEED + 51)
     comp = bytes.maketrans(b"ACGT", b"TGCA")
     B = 2048
     with open(path, "w", buffering=1 << 22) as f:
-        for lo in range(0, OV_READS, B):
-            n = min(B, OV_READS - lo)
+        for lo in range(0, n_reads, B):
+            n = min(B, n_reads - lo)
             starts = rng.integers(0, len(genome) - OV_READ_LEN, n)
             rows = np.stack([genome[s:s + OV_READ_LEN] for s in starts])
             m = rng.random(rows.shape) < OV_ERR
@@ -1750,14 +1761,9 @@ def trim_card_vs_cpu(path: str, d: str):
         raise SystemExit("trim fastq on the card differs from the CPU's")
 
 
-def trim_golden(dev):
-    """test_trim_golden.py's fixture and calls on the card: the output's
-    SHA-256 must be the JAX package's recorded digest."""
-    import hashlib
-    import io
-    import tempfile
-    from downpore_tpu_torch.io import SequenceSet
-    from downpore_tpu_torch.trim import load_trimmer
+def golden_trim_records():
+    """test_trim_golden.py's fixture: 30 reads with mutated adapters at
+    both ends, a chimera and a clean read, as (name, bases)."""
     rng = np.random.default_rng(9)
     letters = "ACGT"
     front = "AATGTACTTCGTTCAGTTACGTATTGCT"
@@ -1776,10 +1782,22 @@ def trim_golden(dev):
         records.append((f"read{i}", mut(front) + core + mut(back)))
     records.append(("chimera", rb(1500) + front + rb(1600)))
     records.append(("clean", rb(900)))
+    return records
+
+
+def trim_golden(dev):
+    """test_trim_golden.py's fixture and calls on the card: the output's
+    SHA-256 must be the JAX package's recorded digest."""
+    import hashlib
+    import io
+    import tempfile
+    from downpore_tpu_torch.io import SequenceSet
+    from downpore_tpu_torch.trim import load_trimmer
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "reads.fastq")
         with open(path, "w") as f:
-            f.writelines(f"@{n}\n{s}\n+\n{'I' * len(s)}\n" for n, s in records)
+            f.writelines(f"@{n}\n{s}\n+\n{'I' * len(s)}\n"
+                         for n, s in golden_trim_records())
         trimmer = load_trimmer("", "", 6, verbosity=0, device=dev)
         seq_set = SequenceSet(path, min_length=50)
         trimmer.determine_adapters(seq_set, 10000, 90)
@@ -1792,6 +1810,215 @@ def trim_golden(dev):
     if digest != TRIM_GOLDEN_DIGEST:
         raise SystemExit("the golden trim digest differs from the JAX "
                          "package's")
+
+
+# the multi-device paths on one card (phase_grid)
+GRID_OV_READS = 2000
+# trim CLI flags that give test_trim_golden.py's trim parameters
+GRID_TRIM_FLAGS = ["-chunk_size", "1000", "-extra_middle_trim", "50",
+                   "-verbosity", "0"]
+# the JAX package's make_mesh error for -seed_shards 2 on one device
+JAX_SEED_SHARDS_ERROR = ("mesh needs n_data x n_seed <= devices: have 1 "
+                         "device(s), asked for n_data=0 x n_seed=2")
+
+
+def run_cli(argv, device: str, listing=None) -> tuple:
+    """The port's CLI on ``device`` (with the default grid's device listing
+    replaced by ``listing`` when given); returns (stdout, stderr)."""
+    import io
+    from downpore_tpu_torch.cli.main import main as cli_main
+    from downpore_tpu_torch.parallel import mesh as mesh_mod
+    out, err = io.StringIO(), io.StringIO()
+    subs = [] if listing is None else [(mesh_mod, "local_devices",
+                                        lambda: list(listing))]
+    with device_env(device), patched(subs), \
+            contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        cli_main(argv)
+    return out.getvalue(), err.getvalue()
+
+
+def grid_counted(name: str, dev, calls: list, run):
+    """``run()`` with the chain launches recorded into ``calls`` and
+    counted from 0; returns (its result, the launch count, seconds)."""
+    from downpore_tpu_torch.ops import cuda_chain
+    cuda_chain.chain_scan.launches = 0
+    with patched([(cuda_chain, "_launch", recording(
+            cuda_chain._launch, cuda_chain.chain_scan_plain, calls))]):
+        t0 = time.perf_counter()
+        out = run()
+        sync(dev)
+        wall = time.perf_counter() - t0
+    launches = cuda_chain.chain_scan.launches
+    log(f"grid {name}: {wall:.3f} s, chain_scan launches {launches}")
+    if launches <= 0:
+        raise SystemExit(f"grid {name} launched no chain_scan kernel")
+    return out, launches, wall
+
+
+def phase_grid(mapper, reads, dev):
+    """The multi-device paths on the one card, as grids that place
+    several shards on it: the k-mer histogram on a 2 x 2 grid against the
+    host bincount; ``Mapper(mesh=make_mesh(2, 2, [card] * 4))`` on the
+    slice's genome and reads (PAF equal to the unsharded mapper's, warm-up
+    launches held to the plain scan, three timed passes with the chain
+    launch count, resident bytes per shard); the ``map`` CLI with
+    ``-data_parallel true`` (the 1 x 1 grid of one card) against no flag,
+    and ``-seed_shards 2`` against the JAX package's error; seed-sharded
+    ``overlap`` (2 x 2) on the first GRID_OV_READS reads of the overlap
+    case against the unsharded run; ``trim -data_parallel true`` (1 x 1
+    and a 2-way data grid on the card) against the golden digest.
+    Returns the chain launches of the timed map passes, the sharded
+    overlap and the trims, and the max abs error of every recorded
+    launch of the phase against the plain version."""
+    import hashlib
+    import tempfile
+    from downpore_tpu_torch.mapping import Mapper
+    from downpore_tpu_torch.ops import cuda_chain
+    from downpore_tpu_torch.parallel import make_mesh
+    from downpore_tpu_torch.utils import kmer_occurrences, score_seed_values
+
+    t_phase = time.perf_counter()
+    grid = make_mesh(n_data=2, n_seed=2, devices=[dev] * 4)
+    ref = mapper.reference
+    t0 = time.perf_counter()
+    hist = kmer_occurrences([ref], K, mesh=grid)
+    t_grid = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = kmer_occurrences([ref], K)
+    same = bool(np.array_equal(hist, host))
+    log(f"grid k-mer histogram (2 x 2 on the card, k = {K}): {t_grid:.3f} "
+        f"s against the host bincount's {time.perf_counter() - t0:.3f} s; "
+        f"{int(hist.sum())} k-mers, equal: {same}")
+    if not same:
+        raise SystemExit("the grid k-mer histogram differs from the host "
+                         "bincount")
+
+    plain = [mapper.as_string(m) for ms in mapper.map_batch(reads)
+             for m in ms]
+    t0 = time.perf_counter()
+    gm = Mapper(ref, False, K, score_seed_values(hist, K), seed_rate=40,
+                edge_size=1000, chunk_size=10000, mesh=grid)
+    sync(dev)
+    eng = gm.engine
+    if not eng.seed_sharded:
+        raise SystemExit("the 2 x 2 grid's engine is not seed-sharded")
+    shards = eng.shard_tensors()
+    per_shard = {d: {n: t.numel() * t.element_size() for n, t in
+                     tabs.items()} for d, tabs in shards.items()}
+    unique = {}
+    for tabs in shards.values():
+        for t in tabs.values():
+            unique[t.data_ptr()] = t.numel() * t.element_size()
+    log(f"grid map index: {eng.C} chunks, H={eng.H}, padded rows "
+        f"{eng._mem_shape[0]}, built in {time.perf_counter() - t0:.1f} s; "
+        f"resident bytes per data shard "
+        + "; ".join(f"{d}: {b} = {sum(b.values())}"
+                    for d, b in per_shard.items())
+        + f"; {sum(unique.values())} bytes on the card (shards that share "
+        f"the card share their tables)")
+    calls = []
+    t0 = time.perf_counter()
+    warm, _, _ = grid_counted("map warm-up pass (recorded)", dev, calls,
+                              lambda: gm.map_batch(reads))
+    log(f"grid map warm-up pass: its {len(calls)} chain launches against "
+        f"the plain version:")
+    err = check_recorded(calls).get("chain_scan", 0)
+    calls.clear()
+    eng.routes.clear()
+    cuda_chain.chain_scan.launches = 0
+    walls = []
+    for _ in range(TIMED_PASSES):
+        t0 = time.perf_counter()
+        results = gm.map_batch(reads)
+        sync(dev)
+        walls.append(time.perf_counter() - t0)
+    map_launches = cuda_chain.chain_scan.launches
+    got = [gm.as_string(m) for ms in results for m in ms]
+    warm_paf = [gm.as_string(m) for ms in warm for m in ms]
+    bases = sum(len(r) for r in reads)
+    wall = float(np.median(walls))
+    same = got == plain == warm_paf
+    log(f"grid map_batch (2 x 2 on the card), {TIMED_PASSES} passes: wall "
+        f"{', '.join(f'{w:.4f}' for w in walls)} s; median {wall:.4f} s = "
+        f"{bases / wall:.0f} bases/s; chain_scan launches {map_launches}; "
+        f"routes {dict(eng.routes)}; {len(got)} PAF lines, equal to the "
+        f"unsharded mapper's: {same}")
+    if map_launches <= 0:
+        raise SystemExit("the grid map launched no chain_scan kernel")
+    if not same or not got:
+        raise SystemExit("the 2 x 2 grid's PAF differs from the unsharded "
+                         "mapper's")
+    del gm, eng, warm, results
+
+    with tempfile.TemporaryDirectory() as d:
+        rng = np.random.default_rng(SEED + 60)
+        g = BASES[rng.integers(0, 4, 30_000)].tobytes().decode()
+        gpath, rpath = os.path.join(d, "g.fasta"), os.path.join(d, "r.fasta")
+        with open(gpath, "w") as f:
+            f.write(f">genome\n{g}\n")
+        with open(rpath, "w") as f:
+            for i in range(24):
+                p = int(rng.integers(0, len(g) - 2000))
+                read = mutate_fast(rng, np.frombuffer(
+                    g[p:p + 2000].encode(), np.uint8), 0.03)
+                f.write(f">r{i}\n{read.tobytes().decode()}\n")
+        argv = ["map", "-input", rpath, "-reference", gpath, "-circular",
+                "false"]
+        base = run_cli(argv, dev.type)
+        dp = run_cli(argv + ["-data_parallel", "true"], dev.type)
+        try:
+            run_cli(argv + ["-seed_shards", "2"], dev.type)
+            raised = "nothing"
+        except ValueError as e:
+            raised = str(e)
+        log(f"grid map CLI on one card: {base[0].count(chr(10))} PAF lines; "
+            f"-data_parallel true equal to no flag: {dp == base}; "
+            f"-seed_shards 2 raised: {raised!r}")
+        if dp != base or not base[0]:
+            raise SystemExit("map -data_parallel true differs from map")
+        if raised != JAX_SEED_SHARDS_ERROR:
+            raise SystemExit("map -seed_shards 2 on one card did not raise "
+                             "the JAX package's error")
+
+        path = os.path.join(d, "overlap.fasta")
+        write_overlap_reads(path, GRID_OV_READS)
+        t0 = time.perf_counter()
+        ov_base = run_cli(["overlap", "-input", path], dev.type)
+        t_base = time.perf_counter() - t0
+        ov_grid, ov_launches, t_ov = grid_counted(
+            "overlap -seed_shards 2 (2 x 2 on the card)", dev, calls,
+            lambda: run_cli(["overlap", "-input", path, "-seed_shards", "2"],
+                            dev.type, [dev] * 4))
+        same = ov_grid == ov_base
+        log(f"grid overlap on {GRID_OV_READS} reads: unsharded {t_base:.3f} "
+            f"s, 2 x 2 {t_ov:.3f} s; {ov_base[0].count(chr(10))} PAF lines, "
+            f"stdout and stderr equal: {same}")
+        if not same or not ov_base[0]:
+            raise SystemExit("the seed-sharded overlap differs from the "
+                             "unsharded run")
+
+        path = os.path.join(d, "golden.fastq")
+        with open(path, "w") as f:
+            f.writelines(f"@{n}\n{s}\n+\n{'I' * len(s)}\n"
+                         for n, s in golden_trim_records())
+        trim_launches = 0
+        for name, listing in (("1 x 1", None), ("2-way data", [dev] * 2)):
+            (out, _), n, _ = grid_counted(
+                f"trim -data_parallel true ({name})", dev, calls,
+                lambda: run_cli(["trim", "-input", path, "-data_parallel",
+                                 "true"] + GRID_TRIM_FLAGS, dev.type,
+                                listing))
+            trim_launches += n
+            digest = hashlib.sha256(out.encode()).hexdigest()
+            log(f"grid trim ({name} grid on the card): sha256 {digest}")
+            if digest != TRIM_GOLDEN_DIGEST:
+                raise SystemExit("trim -data_parallel true differs from the "
+                                 "golden digest")
+    log(f"grid overlap and trims: their {len(calls)} chain launches "
+        f"against the plain version:")
+    err = max(err, check_recorded(calls).get("chain_scan", 0))
+    log(f"phase_grid: {time.perf_counter() - t_phase:.1f} s")
+    return map_launches + ov_launches + trim_launches, err
 
 
 def own_imports() -> set:
@@ -1848,6 +2075,7 @@ def main() -> int:
     mapper, reads, map_launches = phase_slice(dev)
     phase_profile(mapper, reads)
     phase_card_vs_cpu(mapper, reads)
+    grid_launches, grid_err = phase_grid(mapper, reads, dev)
     del mapper, reads
     chr_launches, chr_err = phase_chromosome(dev)
     correct_records, correct_launches, correct_errs = phase_correct(dev)
@@ -1869,6 +2097,7 @@ def main() -> int:
     log(f"launches by path: map chain_scan {map_launches}; chromosome map "
         f"chain_scan {chr_launches}; correct {correct_launches}; overlap "
         f"chain_scan {ov_launches}; trim chain_scan {trim_launches}; "
+        f"grid paths chain_scan {grid_launches}; "
         f"chain_scan by mode over the whole run "
         f"{dict(cuda_chain.MODE_LAUNCHES)}")
     log("chain_scan at the path shapes: " + "; ".join(
@@ -1883,9 +2112,10 @@ def main() -> int:
         "source": "downpore_tpu_torch/csrc/chain_scan.cu",
         "replaces": "downpore_tpu/ops/pallas_chain.py:42",
         "launches": map_launches + chr_launches
-        + correct_launches["chain_scan"] + ov_launches + trim_launches,
+        + correct_launches["chain_scan"] + ov_launches + trim_launches
+        + grid_launches,
         "max_abs_err": max(max_err, chr_err, correct_errs["chain_scan"],
-                           ov_err, trim_err),
+                           ov_err, trim_err, grid_err),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": chain_bound_ms,
         "bound_by": chain_by, "library_ms": None}, {
         "name": "update_bands", "route": "cuda",

@@ -12,7 +12,8 @@ inputs.
 
 Ported: the ``trim``, ``map`` (flat and binned retrieval gates),
 ``overlap`` and ``correct`` commands, and the host commands ``subseq``,
-``consensus``, ``align``, ``kmers`` and ``version``.
+``consensus``, ``align``, ``kmers`` and ``version``; their multi-device
+paths run on a (data, seed) grid of torch devices (``parallel``).
 """
 from __future__ import annotations
 

@@ -17,7 +17,8 @@ the host engine.  On the card the exception ends the run instead: a
 kernel that fails is never replaced by host work.
 ``-trim 1`` trims the reads first with the port's ``Trimmer`` at k = 5,
 as the JAX command does.
-``-data_parallel true`` raises until the multi-GPU port.
+``-data_parallel true`` builds a device grid (``parallel.make_mesh``) for
+the k-mer counts and the overlap rounds, as the JAX command's mesh.
 """
 from __future__ import annotations
 
@@ -146,10 +147,6 @@ class CorrectCommand(Command):
         from ..trim import load_trimmer
         from ..utils import kmer_occurrences, score_seed_values
 
-        if parse_bool(args["data_parallel"]):
-            raise NotImplementedError(
-                "Multi-GPU correct (-data_parallel) is not ported yet: "
-                "ROADMAP.md, 'Multi-GPU'")
         device = resolve_device()
         overlap_size = parse_int(args["overlap_size"])
         num_seeds = parse_int(args["num_seeds"])
@@ -159,6 +156,13 @@ class CorrectCommand(Command):
         hit_fraction = parse_float(args["min_hits"])
         mod = Model(args["model"], False) if args.get("model") else None
 
+        # the grid serves the k-mer counts and the overlap rounds; the
+        # consensus runs unsharded, as in the JAX command
+        mesh = None
+        if parse_bool(args["data_parallel"]):
+            from ..parallel import make_mesh
+            mesh = make_mesh()
+
         seq_set = SequenceSet(args["input"], min_length=overlap_size,
                               cache=parse_bool(args["himem"]))
         if args.get("trim") == "1":
@@ -166,7 +170,7 @@ class CorrectCommand(Command):
                                    args["back_adapters"], 5, device=device)
             trimmer.trim(seq_set)
             trimmer.print_stats()
-        counts = kmer_occurrences(seq_set.get_sequences(), k)
+        counts = kmer_occurrences(seq_set.get_sequences(), k, mesh=mesh)
         values = score_seed_values(counts, k)
 
         def overlap_round(queries_from):
@@ -174,7 +178,7 @@ class CorrectCommand(Command):
             collate and reduce the hits to seed-space contigs."""
             index = SeedIndex(k)
             overlapper = Overlapper(index, chunk_size, overlap_size, 10,
-                                    hit_fraction, device=device)
+                                    hit_fraction, mesh=mesh, device=device)
             queries = overlapper.prepare_queries(
                 num_seeds, seed_batch_size, values, queries_from,
                 QUERY_ALL)

@@ -1,7 +1,8 @@
 """The map command (ref: commands/map.go:17-116) on the torch engine.
 
-Same flags, defaults and help text as ``downpore_tpu``'s map command; the
-multi-device flags are accepted and raise until the multi-GPU port."""
+Same flags, defaults and help text as ``downpore_tpu``'s map command;
+``-data_parallel true`` and ``-seed_shards N`` build a device grid
+(``parallel.make_mesh``) where the JAX command builds its mesh."""
 from __future__ import annotations
 
 import sys
@@ -39,22 +40,23 @@ class MapCommand(Command):
         from ..mapping import Mapper
         from ..utils import kmer_occurrences, score_seed_values
 
-        if parse_bool(args["data_parallel"]) or \
-                parse_int(args["seed_shards"]) > 1:
-            raise NotImplementedError(
-                "Multi-GPU map (-data_parallel / -seed_shards) is not "
-                "ported yet: ROADMAP.md, 'Multi-GPU'")
         k = parse_int(args["k"])
         ref_set = SequenceSet(args["reference"])
         reference = next(iter(ref_set.get_sequences()))
-        counts = kmer_occurrences(ref_set.get_sequences(), k)
+        mesh = None
+        n_seed = parse_int(args["seed_shards"])
+        if parse_bool(args["data_parallel"]) or n_seed > 1:
+            from ..parallel import make_mesh
+            mesh = make_mesh(n_seed=n_seed)
+        # grids of several devices count on them (sharded bincount)
+        counts = kmer_occurrences(ref_set.get_sequences(), k, mesh=mesh)
         values = score_seed_values(counts, k)
         print("K-mer counting complete. Preparing to start indexing and "
               "querying...", file=sys.stderr)
         mapper = Mapper(reference, parse_bool(args["circular"]), k, values,
                         parse_int(args["seed_rate"]),
                         parse_int(args["query_size"]),
-                        parse_int(args["chunk_size"]))
+                        parse_int(args["chunk_size"]), mesh=mesh)
         seq_set = SequenceSet(args["input"],
                               min_length=parse_int(args["min_length"]))
         mapped = multiple = unmapped = total = 0

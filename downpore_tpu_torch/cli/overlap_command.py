@@ -9,8 +9,8 @@ worker thread (redone when the round's final checks moved the ignore
 flags), and the array-direct native final check.  The rounds run on the
 port's ``Overlapper``.  The JAX command's cross-round shape
 plan is dropped: it pins only compiled shapes, never an output.
-``-data_parallel true`` and ``-seed_shards`` above 1 raise until the
-multi-GPU port.
+``-data_parallel true`` and ``-seed_shards N`` build a device grid
+(``parallel.make_mesh``) where the JAX command builds its mesh.
 """
 from __future__ import annotations
 
@@ -60,11 +60,6 @@ class OverlapCommand(Command):
         from ..seeds import SeedIndex
         from ..utils import kmer_occurrences, score_seed_values
 
-        if parse_bool(args["data_parallel"]) or \
-                parse_int(args["seed_shards"]) > 1:
-            raise NotImplementedError(
-                "Multi-GPU overlap (-data_parallel / -seed_shards) is not "
-                "ported yet: ROADMAP.md, 'Multi-GPU'")
         device = resolve_device()
         overlap_size = parse_int(args["overlap_size"])
         num_seeds = parse_int(args["num_seeds"])
@@ -76,8 +71,14 @@ class OverlapCommand(Command):
 
         seq_set = SequenceSet(args["input"], min_length=overlap_size,
                               cache=parse_bool(args["himem"]))
+        mesh = None
+        n_seed = parse_int(args["seed_shards"])
+        if parse_bool(args["data_parallel"]) or n_seed > 1:
+            from ..parallel import make_mesh
+            mesh = make_mesh(n_seed=n_seed)
         print(f"Counting all {k}-mers in the input...", file=sys.stderr)
-        counts = kmer_occurrences(seq_set.get_sequences(), k)
+        # grids of several devices count on them (sharded bincount)
+        counts = kmer_occurrences(seq_set.get_sequences(), k, mesh=mesh)
         values = score_seed_values(counts, k, args.get("seed_values", ""))
         print("Counting complete. Starting indexing and querying...",
               file=sys.stderr)
@@ -96,7 +97,8 @@ class OverlapCommand(Command):
             indexing.  Independent of earlier rounds' results."""
             index = SeedIndex(k)
             overlapper = Overlapper(index, chunk_size, overlap_size,
-                                    num_seeds, hit_fraction, device=device)
+                                    num_seeds, hit_fraction, mesh=mesh,
+                                    device=device)
             seqs = seq_set.get_n_sequences_from(first, query_batch_size)
             queries = overlapper.prepare_round(
                 num_seeds, seed_batch_size, values, seqs, QUERY_EDGES,

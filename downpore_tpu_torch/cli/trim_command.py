@@ -4,7 +4,8 @@ Same flags, defaults, help text and flow as ``downpore_tpu``'s trim
 command: determine the adapters present, trim read edges, split reads on
 interior adapters, then write the reads to stdout or demultiplex them.
 ``-profile DIR`` writes a ``torch.profiler`` trace to DIR.
-``-data_parallel true`` raises until the multi-GPU port.
+``-data_parallel true`` builds a device grid (``parallel.make_mesh``)
+where the JAX command builds its mesh.
 """
 from __future__ import annotations
 
@@ -56,13 +57,14 @@ class TrimCommand(Command):
         from ..trim import load_trimmer
         from ..utils import StageTimer, start_profiler, stop_profiler
 
+        mesh = None
         if parse_bool(args["data_parallel"]):
-            raise NotImplementedError(
-                "Multi-GPU trim (-data_parallel) is not ported yet: "
-                "ROADMAP.md, 'Multi-GPU'")
+            from ..parallel import make_mesh
+            mesh = make_mesh()
         device = resolve_device()
         trimmer = load_trimmer(args["front_adapters"], args["back_adapters"],
-                               parse_int(args["k"]), device=device)
+                               parse_int(args["k"]), mesh=mesh,
+                               device=device)
         seq_set = SequenceSet(args["input"], min_length=50,
                               cache=parse_bool(args["himem"]))
         trimmer.set_verbosity(parse_int(args["verbosity"]))

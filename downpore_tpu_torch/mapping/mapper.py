@@ -13,8 +13,9 @@ inward, and binary-searching for chimeric split points
 The device half is the port's ``MapEngine`` on an explicit ``device``
 (retrieval gate, chain DP kernel, summaries); each mapping stage batches
 the device work across every active read, so host control flow never
-issues per-read device calls.  A device mesh raises until the multi-GPU
-port.
+issues per-read device calls.  With a device grid (``mesh``,
+``parallel.make_mesh``) the engine splits every batch over the grid's data
+shards and, with a seed axis, shards the index's hash-bucket rows.
 """
 from __future__ import annotations
 
@@ -53,11 +54,12 @@ class Mapper:
                  kmer_values: np.ndarray, seed_rate: int = 40,
                  edge_size: int = 1000, chunk_size: int = 10000,
                  mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Multi-GPU mapping (Mapper(mesh=...)) is not ported yet: "
-                "ROADMAP.md, 'Multi-GPU'")
-        self.device = resolve_device(device)
+        # optional DeviceGrid with a "data" axis: query batches split over
+        # its data shards (the reference index replicates or, with a
+        # "seed" axis, shards its hash-bucket rows)
+        self.mesh = mesh
+        self.device = mesh.home if mesh is not None \
+            else resolve_device(device)
         self.reference = reference
         self.circular = circular
         self.k = k
@@ -99,8 +101,8 @@ class Mapper:
             * self.index.num_seeds / (4 ** self.k)
         nq = int(min(192, max(64, -(-2 * exp_hits // 32) * 32)))
         self.engine = MapEngine(self.index, self.k, nq=nq, nt=nt,
-                                hit_fraction=0.25, lean=True, binned=True,
-                                device=self.device)
+                                mesh=self.mesh, hit_fraction=0.25,
+                                lean=True, binned=True, device=self.device)
 
     # ------------------------------------------------------------------
     def as_string(self, m: Mapping) -> str:
@@ -361,8 +363,10 @@ class Mapper:
         (ends -> mapNext -> split) is sequential with a link round trip
         per stage, so one shard's host/fetch work hides under the other
         shard's device compute.  Reads are independent, so results are
-        identical to the unsharded run."""
-        if len(reads) >= self._SHARD_MIN:
+        identical to the unsharded run.  A grid engine already splits each
+        batch over its devices (and, across processes, collects in
+        lockstep), so it maps on one thread."""
+        if len(reads) >= self._SHARD_MIN and self.mesh is None:
             from concurrent.futures import ThreadPoolExecutor
             mid = (len(reads) + 1) // 2
             with ThreadPoolExecutor(max_workers=1) as tp:

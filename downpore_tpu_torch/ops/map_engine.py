@@ -40,7 +40,19 @@ fixed pair budget and its 4x escalation (``nonzero`` yields every passing
 pair, which is what the escalated run converges to), batch-size buckets,
 the shape plan that pins compiled shapes across overlap rounds, the
 speculative chain prefetch, combined int16 uploads, async host copies and
-clipped gathers.  Meshes are not ported yet and raise.
+clipped gathers.
+
+With a device grid (``parallel.make_mesh``) every batch splits into the
+grid's data shards (contiguous, equal row blocks, the tail padded with
+rows that never pass the gate), each dispatched on its shard's device
+against a replica of the chunk tables; the collect offsets each block's
+query rows by its first row and concatenates the blocks in order, so the
+walk order is unchanged.  A grid with a ``seed`` axis above 1 shards the
+membership's hash-bucket rows instead (``seed_sharded``): each (data,
+seed) device holds ``HP / n_seed`` rows, the partial counts of the seed
+shards are summed on the data shard's device (``sharded_counts``), and the
+binned gate and the on-device bucket derivation are off, as in the JAX
+engine.
 """
 from __future__ import annotations
 
@@ -51,6 +63,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..parallel.mesh import DeviceGrid
 from . import match as match_ops
 from .chain import make_anchors_topk, dp_from_anchors, dp_forward_lean, \
     summarize_dp, compact_indices
@@ -112,6 +125,26 @@ def _count_rows_pair(membership, rb, db):
         d[sl] = torch.where(first[sl][:, :, None], rows, 0).sum(
             dim=1, dtype=torch.int32)
     return c, d
+
+
+def sharded_counts(mem_blocks, buckets, device):
+    """Seed-sharded retrieval counts (the JAX engine's
+    ``make_sharded_counts``): ``mem_blocks`` are the membership's row
+    blocks in order, one per seed shard and on its device; each counts the
+    query buckets that fall in its row range (``rel = b - lo``, live when
+    ``0 <= rel < H_loc``), and the int32 partial counts are summed on
+    ``device``."""
+    total = None
+    lo = 0
+    for m_local in mem_blocks:
+        H_loc = m_local.shape[0]
+        b = buckets.to(m_local.device)
+        rel = b - lo
+        live = (b >= 0) & (rel >= 0) & (rel < H_loc)
+        part = _count_rows(m_local, torch.where(live, rel, -1)).to(device)
+        total = part if total is None else total + part
+        lo += H_loc
+    return total
 
 
 def _hash(ids, H: int, hashed: bool):
@@ -502,15 +535,22 @@ class MapEngine:
     STATE_KEYS = ("membership", "t_seeds", "t_pos", "usable_dev",
                   "chunk_off", "chunk_inset", "chunk_len")
     BINNED_STATE_KEYS = ("bin_mem1", "bin_mem2")
+    # the resident tensors a data shard holds a replica of
+    DEVICE_KEYS = ("membership", "t_seeds", "t_pos", "usable_dev",
+                   "bin_mem1", "bin_mem2")
 
     def __init__(self, index, k: int, nq: int = 64, nt: int = 320,
                  mesh=None, hit_fraction: float = 0.25,
                  lean: bool = False, binned: bool = False, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "MapEngine(mesh=...) is not ported yet: ROADMAP.md, "
-                "'Multi-GPU'")
-        self.device = resolve_device(device)
+        # batches run on the grid's data shards; without a grid, on a
+        # 1 x 1 grid of ``device``
+        self.mesh = mesh
+        self._grid = (mesh if mesh is not None
+                      else DeviceGrid.single(resolve_device(device)))
+        self.device = self._grid.home
+        self.seed_sharded = (mesh is not None
+                             and "seed" in mesh.axis_names
+                             and mesh.shape["seed"] > 1)
         self.index = index
         self.k = k
         # lean: pack only the mapper-walk summary columns (1 + 7K)
@@ -532,7 +572,8 @@ class MapEngine:
         # two-level binned retrieval at genome scale: chunks permuted into
         # genome-position order so that bins are contiguous ranges of the
         # engine's chunk axis
-        self._binned = bool(binned) and C >= _BINNED_MIN_C
+        self._binned = (bool(binned) and C >= _BINNED_MIN_C
+                        and not self.seed_sharded)
         self._perm = None
         if self._binned:
             self._CB = _BINNED_CB
@@ -545,8 +586,9 @@ class MapEngine:
             self._perm = order         # engine position -> index chunk id
             self._pos_of = np.empty(C, np.int32)
             self._pos_of[order] = np.arange(C, dtype=np.int32)
-        derive_mem = max((s.num_seeds for s in index.sequences),
-                         default=0) <= nt
+        derive_mem = (not self.seed_sharded
+                      and max((s.num_seeds for s in index.sequences),
+                              default=0) <= nt)
         mem = None if derive_mem else np.zeros((self.H, CP), dtype=np.int8)
         t_seeds = np.full((CP, nt), -1, np.int32)
         t_pos = np.zeros((CP, nt), np.int32)
@@ -571,7 +613,17 @@ class MapEngine:
         self.t_seeds = torch.from_numpy(t_seeds).to(dev)
         self.t_pos = torch.from_numpy(t_pos).to(dev)
         self._hashed = S > self.H
-        if derive_mem:
+        if self.seed_sharded:
+            # hash-bucket rows padded to a multiple of n_seed with zero
+            # rows; the row blocks go to the (data, seed) devices
+            ns = mesh.shape["seed"]
+            HP = ((self.H + ns - 1) // ns) * ns
+            if HP != self.H:
+                mem = np.concatenate(
+                    [mem, np.zeros((HP - self.H, mem.shape[1]), mem.dtype)])
+            self.membership = None
+            self._mem_shape = mem.shape
+        elif derive_mem:
             # every chunk's full seed list is resident: scatter on device
             self.membership = _derive_membership(self.t_seeds, self.H,
                                                  self._hashed)
@@ -607,6 +659,58 @@ class MapEngine:
         up = np.zeros(UL, np.int8)
         up[:S] = self.usable
         self.usable_dev = torch.from_numpy(up).to(dev)
+        self._place(mem if self.seed_sharded else None)
+
+    def _place(self, mem=None):
+        """The data shards' resident tables (a grid only): replicas of the
+        home tensors on each data device this process owns and, when
+        seed-sharded, row block s of the padded host membership ``mem`` on
+        device (d, s), one copy per distinct (device, block)."""
+        self._shards = None
+        g = self.mesh
+        if g is None:
+            return
+        S = g.shape["seed"]
+        blocks = {}
+        self._shards = {}
+        for d in range(g.shape["data"]):
+            if not g.owns(d):
+                continue
+            dev = g.data_device(d)
+            tabs = {key: (None if getattr(self, key, None) is None
+                          else getattr(self, key).to(dev))
+                    for key in self.DEVICE_KEYS}
+            tabs["device"] = dev
+            if self.seed_sharded:
+                HL = mem.shape[0] // S
+                for s in range(S):
+                    key = (str(g.devices[d, s]), s)
+                    if key not in blocks:
+                        blocks[key] = torch.from_numpy(np.ascontiguousarray(
+                            mem[s * HL:(s + 1) * HL])).to(g.devices[d, s])
+                tabs["mem_blocks"] = [blocks[(str(g.devices[d, s]), s)]
+                                      for s in range(S)]
+            self._shards[d] = tabs
+
+    def _tables(self, d: int) -> dict:
+        """Data shard ``d``'s resident tensors and device."""
+        if self._shards is not None:
+            return self._shards[d]
+        tabs = {key: getattr(self, key, None) for key in self.DEVICE_KEYS}
+        tabs["device"] = self.device
+        return tabs
+
+    def shard_tensors(self) -> dict:
+        """Per data shard this process owns, its resident tensors by name
+        (``membership`` row blocks as ``mem_block<s>``)."""
+        out = {}
+        for d in (self._shards or {0: None}):
+            tabs = dict(self._tables(d))
+            tabs.pop("device")
+            for s, blk in enumerate(tabs.pop("mem_blocks", [])):
+                tabs[f"mem_block{s}"] = blk
+            out[d] = {k: v for k, v in tabs.items() if v is not None}
+        return out
 
     def load_state(self, arrays: dict):
         """Install resident state taken from a JAX ``downpore_tpu``
@@ -616,11 +720,20 @@ class MapEngine:
         index."""
         keys = self.STATE_KEYS + (self.BINNED_STATE_KEYS if self._binned
                                   else ())
+        mem = None
         for key in keys:
             if key not in arrays:
                 raise KeyError(f"load_state: missing {key!r}")
-            cur = getattr(self, key)
             new = np.asarray(arrays[key])
+            if key == "membership" and self.seed_sharded:
+                # the JAX engine's padded [HP, CP] rows, placed in blocks
+                if tuple(new.shape) != tuple(self._mem_shape):
+                    raise ValueError(f"load_state: membership has shape "
+                                     f"{new.shape}, engine has "
+                                     f"{tuple(self._mem_shape)}")
+                mem = new.astype(np.int8)
+                continue
+            cur = getattr(self, key)
             if tuple(new.shape) != tuple(cur.shape):
                 raise ValueError(f"load_state: {key} has shape "
                                  f"{new.shape}, engine has {tuple(cur.shape)}")
@@ -631,6 +744,7 @@ class MapEngine:
                 setattr(self, key, new.astype(cur.dtype))
         self.usable = np.asarray(arrays["usable_dev"])[:self.num_seeds] > 0
         self._nat_tables = None
+        self._place(mem)
 
     # -- batch-vectorized window packing (host) --------------------------
     _NQS = 192  # seed-scan width: run-collapse is exact for windows with
@@ -755,9 +869,10 @@ class MapEngine:
     def dispatch_packed(self, packed: tuple, base_min: np.ndarray,
                         top_k: int = 4, min_sets: int = 5):
         """Run the fused pipeline on a prepacked query-feature tuple
-        (``pack_query_windows``).  Returns ``(M,
-        (head, packed16))`` with the result on the device, or ``(0,
-        None)`` for an empty batch or index."""
+        (``pack_query_windows``), one block of rows per data shard.
+        Returns ``(M, [(first row, (head, packed16)), ...])`` with the
+        blocks' results on their devices, or ``(0, None)`` for an empty
+        batch or index."""
         q_seeds, q_pos, q_rb, q_db, num_sets, q_len = packed[:6]
         M = q_seeds.shape[0]
         if M == 0 or self.C == 0:
@@ -779,63 +894,89 @@ class MapEngine:
                      + 0.5).astype(np.int64)
         min_count[num_sets < min_sets] = 0
         base_min = np.minimum(np.asarray(base_min), 1 << 14)
-
-        dev = self.device
-        put = lambda a: torch.from_numpy(
-            np.ascontiguousarray(a, np.int32)).to(dev)
-        args = dict(q_pos=put(q_pos), min_count=put(min_count),
-                    base_min=put(base_min), q_len=put(q_len),
-                    q_seeds=put(q_seeds), membership=self.membership,
-                    t_seeds=self.t_seeds, t_pos=self.t_pos, k=self.k,
-                    top_k=top_k, lean=self.lean)
         # buckets are a pure function of (q_seeds, usable) whenever every
-        # extracted seed of every row fits the shipped width
+        # extracted seed of every row fits the shipped width (never
+        # derived when seed-sharded, as in the JAX engine)
         num_seeds_arr = packed[6] if len(packed) > 6 else None
         nq = q_seeds.shape[1]
-        derive = (num_seeds_arr is not None
+        derive = (not self.seed_sharded and num_seeds_arr is not None
                   and int(np.max(num_seeds_arr, initial=0)) <= nq)
+        # a data split's padding rows (min_count 0) never pass the gate
+        rows = dict(q_pos=(q_pos, 0), min_count=(min_count, 0),
+                    base_min=(base_min, 1 << 14), q_len=(q_len, 0),
+                    q_seeds=(q_seeds, -1))
+        if not derive:
+            rows.update(q_rb=(q_rb, -1), q_db=(q_db, -1))
+        blocks = []
+        for d, lo, parts in self._grid.split_rows(
+                [np.asarray(a, np.int32) for a, _ in rows.values()],
+                [f for _, f in rows.values()]):
+            blocks.append((lo, self._dispatch_block(
+                dict(zip(rows, parts)), self._tables(d), derive, top_k)))
+        return (M, blocks)
+
+    def _dispatch_block(self, q: dict, tabs: dict, derive: bool,
+                        top_k: int):
+        """One data shard's fused map pipeline on its device."""
+        args = dict(q_pos=q["q_pos"], min_count=q["min_count"],
+                    base_min=q["base_min"], q_len=q["q_len"],
+                    q_seeds=q["q_seeds"], t_seeds=tabs["t_seeds"],
+                    t_pos=tabs["t_pos"], k=self.k, top_k=top_k,
+                    lean=self.lean)
+        if self.seed_sharded:
+            self.routes["_map_from_counts"] += 1
+            dev = tabs["device"]
+            return _map_from_counts(
+                sharded_counts(tabs["mem_blocks"], q["q_rb"], dev),
+                sharded_counts(tabs["mem_blocks"], q["q_db"], dev), **args)
+        args["membership"] = tabs["membership"]
         if self._binned:
             gate = dict(NB=self._NB, CB=self._CB, BB=self._BB, C=self.C)
             if derive:
                 self.routes["_fused_map_bd"] += 1
                 res, n_bin, BB = _fused_map_bd(
-                    usable=self.usable_dev, bin_mem=self.bin_mem1,
+                    usable=tabs["usable_dev"], bin_mem=tabs["bin_mem1"],
                     hashed=self._hashed, hashed1=self._hashed1, **gate,
                     **args)
             else:
                 self.routes["_fused_map_bc"] += 1
                 res, n_bin, BB = _fused_map_bc(
-                    q_rb=put(q_rb), q_db=put(q_db), bin_mem=self.bin_mem2,
-                    **gate, **args)
+                    q_rb=q["q_rb"], q_db=q["q_db"],
+                    bin_mem=tabs["bin_mem2"], **gate, **args)
             self.bins[(n_bin, BB)] += 1
-        elif derive:
+            return res
+        if derive:
             self.routes["_fused_map_d"] += 1
-            res = _fused_map_d(usable=self.usable_dev, hashed=self._hashed,
-                               **args)
-        else:
-            self.routes["_fused_map_c"] += 1
-            res = _fused_map_c(q_rb=put(q_rb), q_db=put(q_db), **args)
-        return (M, res)
+            return _fused_map_d(usable=tabs["usable_dev"],
+                                hashed=self._hashed, **args)
+        self.routes["_fused_map_c"] += 1
+        return _fused_map_c(q_rb=q["q_rb"], q_db=q["q_db"], **args)
 
     def collect_arrays_many(self, futs_list):
         """Host arrays of several dispatches: per dispatch ``(head [N, 3]
         int32 (query row, chunk, distinct count), summary [N, W] int32)``
         ordered query-major / chunk-ascending (the reference's candidate
-        walk order), or None for an empty dispatch.  Binned engines'
-        chunk ids are translated from engine to index order and the rows
-        sorted again."""
+        walk order), or None for an empty dispatch.  Each block's query
+        rows are offset by its first row; binned engines' chunk ids are
+        translated from engine to index order and the rows sorted again."""
         out = []
-        for _, res in futs_list:
-            if res is None:
+        for _, blocks in futs_list:
+            if blocks is None:
                 out.append(None)
                 continue
-            head, packed = (res[0].cpu().numpy(),
-                            res[1].cpu().numpy().astype(np.int32))
-            if self._perm is not None:
-                head[:, 1] = self._perm[head[:, 1]]
-                order = np.lexsort((head[:, 1], head[:, 0]))
-                head, packed = head[order], packed[order]
-            out.append((head, packed))
+            parts = {}
+            for lo, res in blocks:
+                head, packed = (res[0].cpu().numpy(),
+                                res[1].cpu().numpy().astype(np.int32))
+                head[:, 0] += lo
+                if self._perm is not None:
+                    head[:, 1] = self._perm[head[:, 1]]
+                    order = np.lexsort((head[:, 1], head[:, 0]))
+                    head, packed = head[order], packed[order]
+                parts[lo] = (head, packed)
+            parts = self._grid.gather(parts)
+            out.append(parts[0] if len(parts) == 1 else tuple(
+                np.concatenate([p[i] for p in parts]) for i in range(2)))
         return out
 
     # -- host-side seed-query packing (overlapper) -----------------------
@@ -893,8 +1034,9 @@ class MapEngine:
         max_ns = max((len(q.seeds) for q in seed_queries), default=1)
         nq_eff = min(self.nq,
                      max(32, ((min(max_ns, self.nq) + 63) // 64) * 64))
-        # buckets derive on the device when every query's seeds fit
-        derive = max_ns <= nq_eff
+        # buckets derive on the device when every query's seeds fit (never
+        # when seed-sharded, as in the JAX engine)
+        derive = not self.seed_sharded and max_ns <= nq_eff
         q_seeds, q_pos, q_rb, q_db, num_sets, _ = self.pack_queries(
             seed_queries, need_buckets=not derive)
         q_seeds = q_seeds[:, :nq_eff]
@@ -906,23 +1048,45 @@ class MapEngine:
         # 256 MB as nt grows
         a_chunk = max(128, min(1024,
                                (1 << 28) // max(1, nq_eff * self.nt)))
-        dev = self.device
-        put = lambda a: torch.from_numpy(
-            np.ascontiguousarray(a, np.int32)).to(dev)
-        common = dict(q_pos=put(q_pos), min_count=put(min_count),
-                      q_seeds=put(q_seeds), membership=self.membership,
-                      t_seeds=self.t_seeds, t_pos=self.t_pos, k=self.k,
-                      variant=variant, chunk=a_chunk, chain_len=chain_len)
+        # a data split's padding rows (min_count 0) never pass the gate
+        rows = dict(q_pos=(q_pos, 0), min_count=(min_count, 0),
+                    q_seeds=(q_seeds, -1))
         if derive:
-            self.routes["_fused_overlap_d"] += 1
-            res = _fused_overlap_d(
-                base_min=put(np.minimum(np.asarray(base_min), 1 << 14)),
-                usable=self.usable_dev, hashed=self._hashed, **common)
+            rows["base_min"] = (np.minimum(np.asarray(base_min), 1 << 14),
+                                1 << 14)
         else:
-            self.routes["_fused_overlap"] += 1
-            res = _fused_overlap(q_rb=put(q_rb), q_db=put(q_db),
-                                 base_min=put(base_min), **common)
-        futs = (M, res)
+            rows.update(base_min=(base_min, 1 << 20), q_rb=(q_rb, -1),
+                        q_db=(q_db, -1))
+        blocks = []
+        for d, lo, parts in self._grid.split_rows(
+                [np.asarray(a, np.int32) for a, _ in rows.values()],
+                [f for _, f in rows.values()]):
+            q = dict(zip(rows, parts))
+            tabs = self._tables(d)
+            common = dict(q_pos=q["q_pos"], min_count=q["min_count"],
+                          q_seeds=q["q_seeds"], base_min=q["base_min"],
+                          t_seeds=tabs["t_seeds"], t_pos=tabs["t_pos"],
+                          k=self.k, variant=variant, chunk=a_chunk,
+                          chain_len=chain_len)
+            if self.seed_sharded:
+                self.routes["_overlap_from_counts"] += 1
+                dev = tabs["device"]
+                res = _overlap_from_counts(
+                    sharded_counts(tabs["mem_blocks"], q["q_rb"], dev),
+                    sharded_counts(tabs["mem_blocks"], q["q_db"], dev),
+                    **common)
+            elif derive:
+                self.routes["_fused_overlap_d"] += 1
+                res = _fused_overlap_d(usable=tabs["usable_dev"],
+                                       membership=tabs["membership"],
+                                       hashed=self._hashed, **common)
+            else:
+                self.routes["_fused_overlap"] += 1
+                res = _fused_overlap(q_rb=q["q_rb"], q_db=q["q_db"],
+                                     membership=tabs["membership"],
+                                     **common)
+            blocks.append((lo, res))
+        futs = (M, blocks)
         return futs if _defer else self.collect_chains(futs)
 
     def dispatch_chains(self, seed_queries: List, base_min: np.ndarray,
@@ -938,13 +1102,25 @@ class MapEngine:
         ct)`` with head columns (query row, chunk, best chain length,
         distinct count) over the kept rows, in query-major /
         chunk-ascending order, and the chains sliced to the longest kept
-        one."""
+        one (-1 past each row's own chain)."""
         if isinstance(futs, list):       # empty-input fast path
             return 0, np.zeros((0, 4), np.int32), None, None
-        M, (head, cq, ct, mx) = futs
-        head, cq, ct = _slice_chains(head, cq, ct, len(head), max(1, mx))
-        return (M, head.cpu().numpy(), cq.cpu().numpy(),
-                ct.cpu().numpy())
+        M, blocks = futs
+        parts = {}
+        for lo, (head, cq, ct, mx) in blocks:
+            head, cq, ct = _slice_chains(head, cq, ct, len(head), max(1, mx))
+            head = head.cpu().numpy()
+            head[:, 0] += lo
+            parts[lo] = (head, cq.cpu().numpy(), ct.cpu().numpy())
+        parts = self._grid.gather(parts)
+        if len(parts) == 1:
+            return (M,) + parts[0]
+        L = max(p[1].shape[1] for p in parts)
+        pad = lambda a: np.pad(a, ((0, 0), (0, L - a.shape[1])),
+                               constant_values=-1)
+        return (M, np.concatenate([p[0] for p in parts]),
+                np.concatenate([pad(p[1]) for p in parts]),
+                np.concatenate([pad(p[2]) for p in parts]))
 
     def collect_chains(self, futs):
         """Per-query candidate lists of a ``dispatch_chains`` result (see

@@ -32,8 +32,15 @@ stacking bought the JAX engine one XLA call for both sides, but here it
 would be the two per-side verdicts plus stacked copies, so each side takes
 ``edge_verdict_dispatch``.  Pairs that fail the gate chain nowhere: they
 report the empty summary the JAX engine gives them.  Only ``_fused_match``, which returns every pair's
-summary row, chains them all.  Meshes raise; ``chain`` and
-``_chain_from_windows`` have no caller and are not ported.
+summary row, chains them all.  ``chain`` and ``_chain_from_windows``
+have no caller and are not ported.
+
+With a device grid (``mesh``) the tables replicate to each data shard's
+device and every window batch splits into the grid's data shards
+(contiguous, equal row blocks; padding rows have no k-mers, so they pass
+no gate); each block runs on its shard's device and the collects put the
+blocks' rows back in order (per-adapter totals summed, coverages
+maximized).
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..parallel.mesh import DeviceGrid
 from .chain import compact_indices, dp_from_anchors, make_anchors_topk, \
     summarize_dp, summarize_scalars, unpack_summary
 
@@ -294,13 +302,14 @@ class WindowChainEngine:
     def __init__(self, front_adapters, back_adapters, front_sets, back_sets,
                  kmer_map: np.ndarray, seed_map: List[int], k: int,
                  nq: int = 64, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "WindowChainEngine(mesh=...) is not ported yet: ROADMAP.md, "
-                "'Multi-GPU'")
         self.k = k
         self.nq = nq
-        self.device = resolve_device(device)
+        # window batches run on the grid's data shards; without a grid,
+        # on a 1 x 1 grid of ``device``
+        self.mesh = mesh
+        self._grid = (mesh if mesh is not None
+                      else DeviceGrid.single(resolve_device(device)))
+        self.device = self._grid.home
         size = kmer_map.shape[0]
         sm = np.asarray(seed_map, dtype=np.int64)
 
@@ -346,6 +355,20 @@ class WindowChainEngine:
         self.back = tuple(put(a) for a in bt)
         self._front_km, self._back_km = put(fkm), put(bkm)
         self._front_bc, self._back_bc = put(fbc), put(bbc)
+        # replicas on the grid's data devices (aliases on the home device)
+        self._replicas = {}
+        if mesh is not None:
+            for d in range(mesh.shape["data"]):
+                if mesh.owns(d):
+                    dev = mesh.data_device(d)
+                    self._replicas[str(dev)] = {
+                        side: (km.to(dev), tuple(a.to(dev) for a in tabs),
+                               bc.to(dev))
+                        for side, km, tabs, bc in (
+                            (True, self._front_km, self.front,
+                             self._front_bc),
+                            (False, self._back_km, self.back,
+                             self._back_bc))}
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         """A host array as a new tensor on the engine's device (always a
@@ -362,10 +385,20 @@ class WindowChainEngine:
         cm[:A] = chain_min[:A]
         return self._put(gm), self._put(cm), A
 
-    def _side(self, front: bool):
+    def _side(self, front: bool, device=None):
+        """(k-mer table, (seeds, pos, lengths), barcode flags) of one side,
+        on ``device`` (default the engine's)."""
+        if device is not None and str(device) in self._replicas:
+            return self._replicas[str(device)][front]
         if front:
             return self._front_km, self.front, self._front_bc
         return self._back_km, self.back, self._back_bc
+
+    def _blocks(self, packed_dev, lens_dev):
+        """A window batch's data shard blocks: ``[(lo, packed, lens)]``,
+        each on its shard's device."""
+        return [(lo, p, ln) for _, lo, (p, ln) in
+                self._grid.split_rows([packed_dev, lens_dev], [0, 0])]
 
     # -- per batch ------------------------------------------------------
     def upload(self, windows, W: int):
@@ -382,38 +415,45 @@ class WindowChainEngine:
 
     def gate(self, packed_dev, lens_dev, front: bool, n: int,
              W: int) -> np.ndarray:
-        table = self._side(front)[0]
-        counts = _gate_counts(_unpack_kmers(packed_dev, self.k, W),
-                              lens_dev, table)
-        return counts.cpu().numpy()[:n]
+        parts = {}
+        for lo, p, ln in self._blocks(packed_dev, lens_dev):
+            table = self._side(front, p.device)[0]
+            parts[lo] = _gate_counts(_unpack_kmers(p, self.k, W), ln,
+                                     table).cpu().numpy()
+        return np.concatenate(self._grid.gather(parts))[:n]
 
     def match_dispatch(self, windows, front: bool, gate_min: np.ndarray,
                        chain_min: np.ndarray, W: int, top_t: int = 8,
                        batch: int = 16384):
         """Fused gate + chain (``_fused_match``) per sub-batch of
-        ``batch`` windows; fetch with ``match_collect``."""
-        table, (a_seeds, a_pos, a_len), _ = self._side(front)
+        ``batch`` windows and data shard; fetch with ``match_collect``."""
+        table = self._side(front)[0]
         gm, cm, A = self._pad_mins(table, gate_min, chain_min)
         if A == 0:  # no adapters enabled: no window has matches
             return [(len(windows), None)]
         futures = []
         for lo in range(0, len(windows), batch):
             km_dev, lens_dev, n = self.upload(windows[lo:lo + batch], W)
-            futures.append((n, _fused_match(
-                km_dev, lens_dev, table, gm, cm, a_seeds, a_pos, a_len,
-                self.k, W, top_t=top_t)))
+            blocks = []
+            for blo, p, ln in self._blocks(km_dev, lens_dev):
+                tab, (a_seeds, a_pos, a_len), _ = self._side(front, p.device)
+                blocks.append((blo, _fused_match(
+                    p, ln, tab, gm.to(p.device), cm.to(p.device), a_seeds,
+                    a_pos, a_len, self.k, W, top_t=top_t)))
+            futures.append((n, blocks))
         return futures
 
     def match_collect(self, futures):
         """Per window, a list of (adapter idx, summary row dict) for its
         top-``top_t`` adapters with a chain."""
         results = []
-        for n, fut in futures:
-            if fut is None:
+        for n, blocks in futures:
+            if blocks is None:
                 results.extend([[] for _ in range(n)])
                 continue
-            arr = fut.cpu().numpy()[:n]                 # [n, T, M+1]
-            T = arr.shape[1]
+            arr = np.concatenate(self._grid.gather(
+                {lo: fut.cpu().numpy() for lo, fut in blocks}))[:n]
+            T = arr.shape[1]                            # [n, T, M+1]
             flat = unpack_summary(arr[:, :, 1:].reshape(n * T, -1))
             for i in range(n):
                 row = []
@@ -436,18 +476,23 @@ class WindowChainEngine:
     def edge_verdict_dispatch(self, windows, front: bool,
                               gate_min: np.ndarray, chain_min: np.ndarray,
                               W: int, top_t: int = 8, batch: int = 16384):
-        """Edge verdicts of one side per sub-batch; fetch with
-        ``edge_verdict_collect``."""
-        table, (a_seeds, a_pos, a_len), is_bc = self._side(front)
+        """Edge verdicts of one side per sub-batch and data shard; fetch
+        with ``edge_verdict_collect``."""
+        table = self._side(front)[0]
         gm, cm, A = self._pad_mins(table, gate_min, chain_min)
         if A == 0:
             return [(len(windows), None)]
         futures = []
         for lo in range(0, len(windows), batch):
             km_dev, lens_dev, n = self.upload(windows[lo:lo + batch], W)
-            futures.append((n, _fused_edge_verdict(
-                km_dev, lens_dev, table, gm, cm, a_seeds, a_pos, a_len,
-                is_bc, self.k, W, top_t=top_t)))
+            blocks = []
+            for blo, p, ln in self._blocks(km_dev, lens_dev):
+                tab, (a_seeds, a_pos, a_len), is_bc = self._side(front,
+                                                                 p.device)
+                blocks.append((blo, _fused_edge_verdict(
+                    p, ln, tab, gm.to(p.device), cm.to(p.device), a_seeds,
+                    a_pos, a_len, is_bc, self.k, W, top_t=top_t)))
+            futures.append((n, blocks))
         return futures
 
     def edge_verdict_collect(self, futures, num_adapters: int):
@@ -455,13 +500,16 @@ class WindowChainEngine:
         per-adapter chain-count totals [num_adapters])."""
         rows = []
         counts = np.zeros(num_adapters, np.int64)
-        for n, fut in futures:
-            if fut is None:
+        for n, blocks in futures:
+            if blocks is None:
                 rows.append(np.zeros((n, 4), np.int32))
                 continue
-            verdict, c = fut
-            rows.append(verdict.cpu().numpy()[:n])
-            counts += c.cpu().numpy()[:num_adapters]
+            parts = self._grid.gather(
+                {lo: (v.cpu().numpy(), c.cpu().numpy())
+                 for lo, (v, c) in blocks})
+            rows.append(np.concatenate([v for v, _ in parts])[:n])
+            for _, c in parts:
+                counts += c[:num_adapters]
         return np.concatenate(rows) if rows else np.zeros((0, 4), np.int32), \
             counts
 
@@ -470,16 +518,21 @@ class WindowChainEngine:
                     batch: int = 16384):
         """DetermineAdapters: per-adapter max covered bases over all
         windows."""
-        table, (a_seeds, a_pos, a_len), _ = self._side(front)
+        table = self._side(front)[0]
         gm, cm, A = self._pad_mins(table, gate_min, chain_min)
         if A == 0:
             return np.zeros(0, np.int32)
         out = np.zeros(table.shape[1], np.int64)
         for lo in range(0, len(windows), batch):
             km_dev, lens_dev, _ = self.upload(windows[lo:lo + batch], W)
-            covs = _fused_enable(km_dev, lens_dev, table, gm, cm, a_seeds,
-                                 a_pos, a_len, self.k, W, top_t=top_t)
-            out = np.maximum(out, covs.cpu().numpy())
+            parts = {}
+            for blo, p, ln in self._blocks(km_dev, lens_dev):
+                tab, (a_seeds, a_pos, a_len), _ = self._side(front, p.device)
+                parts[blo] = _fused_enable(
+                    p, ln, tab, gm.to(p.device), cm.to(p.device), a_seeds,
+                    a_pos, a_len, self.k, W, top_t=top_t).cpu().numpy()
+            for covs in self._grid.gather(parts):
+                out = np.maximum(out, covs)
         return out[:A]
 
     def window_verdict_dispatch(self, windows, gate_min: np.ndarray,
@@ -497,26 +550,30 @@ class WindowChainEngine:
                                        top_t: int = 8):
         """The detection scan over uploaded batches: ``uploads`` is a list
         of (packed_dev, lens_dev, n, lo), ``lo`` the global index of the
-        batch's first window."""
+        batch's first window.  One result per batch and data shard,
+        with the global index of the block's first window."""
         table = self._front_km
-        a_seeds, a_pos, a_len = self.front
         gm, cm, A = self._pad_mins(table, gate_min, chain_min)
         if A == 0:
             return [(0, None)]
-        return [(lo, _fused_window_verdict(
-            km_dev, lens_dev, table, gm, cm, a_seeds, a_pos, a_len,
-            mid_threshold, self.k, W, top_t=top_t))
-            for km_dev, lens_dev, _, lo in uploads]
+        futures = []
+        for km_dev, lens_dev, _, lo in uploads:
+            for blo, p, ln in self._blocks(km_dev, lens_dev):
+                tab, (a_seeds, a_pos, a_len), _ = self._side(True, p.device)
+                futures.append((lo + blo, _fused_window_verdict(
+                    p, ln, tab, gm.to(p.device), cm.to(p.device), a_seeds,
+                    a_pos, a_len, mid_threshold, self.k, W, top_t=top_t)))
+        return futures
 
     def window_verdict_collect(self, futures):
         """Window detections: [(window idx, adapter idx, start,
         identity)] int32 rows, window indices global across batches."""
-        out = []
+        parts = {}
         for lo, fut in futures:
             if fut is None:
                 continue
             rows = fut.cpu().numpy()
-            if rows.size:
-                rows[:, 0] += lo
-                out.append(rows)
+            rows[:, 0] += lo
+            parts[lo] = rows
+        out = [r for r in self._grid.gather(parts) if r.size]
         return np.concatenate(out) if out else np.zeros((0, 4), np.int32)

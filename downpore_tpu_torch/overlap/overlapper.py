@@ -11,8 +11,9 @@ candidate retrieval, the distinct-seed popcount gate and the anchor chain
 DP with the seedAligner gap window (ref: seeds/alignment.go:411-424, the
 lean forward kernel) over the whole query set, returning full chains via
 backpointers.  The engine selects every passing pair, so no cross-round
-shape plan or pair budget is kept.  A device mesh raises until the
-multi-GPU port.
+shape plan or pair budget is kept.  With a device grid (``mesh``) the
+engine splits the query batches over the grid's data shards and, with a
+seed axis, shards the chunk index's hash-bucket rows.
 """
 from __future__ import annotations
 
@@ -53,11 +54,10 @@ class Overlapper:
     def __init__(self, index: SeedIndex, chunk_size: int, overlap: int,
                  min_seeds: int, hit_fraction: float, mesh=None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Multi-GPU overlap (Overlapper(mesh=...)) is not ported "
-                "yet: ROADMAP.md, 'Multi-GPU'")
-        self.device = resolve_device(device)
+        # optional DeviceGrid: query batches split over its data shards
+        self.mesh = mesh
+        self.device = mesh.home if mesh is not None \
+            else resolve_device(device)
         self.index = index
         self.chunk_size = chunk_size
         self.overlap = overlap
@@ -283,7 +283,8 @@ class Overlapper:
                   f"target seeds (chunk anchors past that are dropped; "
                   f"lower -chunk_size to avoid)", file=sys.stderr)
         eng = MapEngine(self.index, self.index.k, nq=128, nt=nt,
-                        hit_fraction=self.hit_fraction, device=self.device)
+                        mesh=self.mesh, hit_fraction=self.hit_fraction,
+                        device=self.device)
         base_min = np.array(
             [int(self.hit_fraction * q.query.num_seeds + 0.5)
              for q in queries], np.int32)

@@ -20,7 +20,8 @@ Dropped from the JAX trimmer: its helpers that nothing calls
 (``_match_edges``, ``_edge_dispatch``, ``_dispatch_windows``,
 ``_collect_windows``, ``_match_windows``, ``_window_detections``), batch
 buckets, the middle pass's rotating staging buffers and its pair budget.
-Meshes raise.
+With a device grid (``mesh``) every window batch splits over the grid's
+data shards.
 """
 from __future__ import annotations
 
@@ -51,13 +52,13 @@ class Trimmer:
     def __init__(self, front_adapters: List[Sequence],
                  back_adapters: List[Sequence], k: int = 6,
                  verbosity: int = 1, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trimmer(mesh=...) is not ported yet: ROADMAP.md, "
-                "'Multi-GPU'")
         self.k = k
         self.verbosity = verbosity
-        self.device = resolve_device(device)
+        # optional DeviceGrid with a "data" axis: window batches split
+        # over its data shards (adapter tables replicate)
+        self.mesh = mesh
+        self.device = mesh.home if mesh is not None \
+            else resolve_device(device)
         self.original_front = list(front_adapters)
         self.original_back = list(back_adapters)
         self._setup_index()
@@ -135,7 +136,7 @@ class Trimmer:
                 self.front_adapters, self.back_adapters,
                 self.front_sets, self.back_sets,
                 self.index.kmer_map, self.index.seed_map, self.k,
-                nq=nq, device=self.device)
+                nq=nq, mesh=self.mesh, device=self.device)
         return self._engine_obj
 
     # -- edge matching --------------------------------------------------
@@ -490,7 +491,15 @@ class _MidStream:
         if self.count == 0:
             return
         n = self.count
-        up = self.eng.upload_rows(self.rows[:n], self.lens[:n], n)
+        nb = n
+        if self.t.mesh is not None:
+            # the batch divides across the data axis: zero rows (no
+            # k-mers) up to a multiple of it, as far as the buffer goes
+            D = self.t.mesh.shape["data"]
+            nb = min(-(-n // D) * D, self.window_batch)
+            self.rows[n:nb] = 0
+            self.lens[n:nb] = 0
+        up = self.eng.upload_rows(self.rows[:nb], self.lens[:nb], n)
         futs = self.eng.window_verdict_dispatch_packed(
             [up + (0,)], self.min_matches, self.min_matches,
             self.t.mid_threshold, self.W)

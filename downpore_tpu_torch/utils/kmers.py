@@ -2,7 +2,8 @@
 
 The reference counts k-mers with parallel dense counters merged at the end
 (ref: util/sequtil/kmers.go:34-69); here counting is a numpy bincount per
-read batch.  Seed value scoring is the
+read batch (a device bincount over a device grid lives in
+``downpore_tpu_torch.parallel``).  Seed value scoring is the
 shared logic of the map and overlap commands
 (ref: commands/map.go:45-71, commands/overlap.go:39-94).
 """
@@ -17,14 +18,53 @@ from ..core.sequence import Sequence, kmer_value, rolling_kmers
 
 def kmer_occurrences(seqs: Iterable[Sequence], k: int,
                      mesh=None) -> np.ndarray:
-    """Dense k-mer counts over all sequences (uint64[4**k]), one host
-    bincount per block of reads.  A device ``mesh`` raises until the
-    multi-GPU port."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "Multi-GPU k-mer counting is not ported yet: ROADMAP.md, "
-            "'Multi-GPU'")
+    """Dense k-mer counts over all sequences (uint64[4**k]).
+
+    With a device grid of more than one entry (``parallel.make_mesh``) the
+    histogram runs on the grid's devices through
+    ``parallel.sharded_kmer_histogram`` (a bincount per entry, summed in
+    int64; ref: util/sequtil/kmers.go:34-51).  Without one, or on a 1 x 1
+    grid, one host bincount per block of reads."""
+    if mesh is not None and getattr(mesh, "size", 1) > 1:
+        return _kmer_occurrences_device(seqs, k, mesh)
     return _kmer_occurrences_host(seqs, k)
+
+
+def _kmer_occurrences_device(seqs: Iterable[Sequence], k: int,
+                             mesh) -> np.ndarray:
+    """Grid histogram: k-mers batch into fixed ``[E, CH]`` blocks (E the
+    grid's entries, padded with -1), each block one sharded bincount."""
+    from ..parallel.mesh import sharded_kmer_histogram
+    hist = sharded_kmer_histogram(mesh, k)
+    E = mesh.size
+    CH = 1 << 20                       # 4 MB per entry block
+    buf = np.full(E * CH, -1, np.int32)
+    fill = 0
+    total = None                       # running total on the grid's home
+
+    def flush():
+        nonlocal fill, total
+        if fill == 0:
+            return
+        buf[fill:] = -1
+        part = hist(buf.reshape(E, CH))
+        total = part if total is None else total + part
+        fill = 0
+
+    for seq in seqs:
+        ks = seq.kmers(k).astype(np.int32)
+        lo = 0
+        while lo < ks.size:
+            take = min(ks.size - lo, buf.size - fill)
+            buf[fill : fill + take] = ks[lo : lo + take]
+            fill += take
+            lo += take
+            if fill == buf.size:
+                flush()
+    flush()
+    if total is None:
+        return np.zeros(4 ** k, dtype=np.uint64)
+    return total.cpu().numpy().astype(np.uint64)
 
 
 def _kmer_occurrences_host(seqs: Iterable[Sequence], k: int) -> np.ndarray:

@@ -13,6 +13,7 @@ from downpore_tpu.cli.main import main as jax_main
 from downpore_tpu.core import Sequence
 from downpore_tpu_torch.cli.main import main as torch_main
 from downpore_tpu_torch.ops import cuda_beam
+from test_torch_parallel import eight_cpus  # noqa: F401  (fixture)
 
 torch.set_num_threads(2)
 
@@ -144,10 +145,16 @@ def test_help_correct_matches_jax(capsys):
     assert "-device_consensus" in ref
 
 
-def test_correct_cli_rejects_unported_flags(monkeypatch, reads_path):
-    """Only the multi-GPU flag is left unported (``-trim 1`` runs: its
-    parity with the JAX package is in test_torch_trim.py)."""
+def test_correct_cli_data_parallel_matches_jax(capsys, monkeypatch,
+                                               reads_path, eight_cpus):
+    """``-data_parallel true`` on an 8-way data grid (8 CPU entries): the
+    k-mer counts and the overlap rounds run on the grid, the consensus
+    unsharded; stdout and stderr equal the JAX CLI's."""
     monkeypatch.setenv(downpore_tpu_torch.DEVICE_ENV, "cpu")
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        torch_main(["correct", "-input", reads_path, "-data_parallel",
-                    "true"])
+    argv = ["correct", "-input", reads_path, "-data_parallel", "true"]
+    jax_main(argv)
+    ref = capsys.readouterr()
+    torch_main(argv)
+    got = capsys.readouterr()
+    assert got.out == ref.out and got.err == ref.err
+    assert got.out.count(">") >= 3

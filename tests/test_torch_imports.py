@@ -57,6 +57,13 @@ def test_no_jax_package_import(path):
     assert banned_imports(path) == []
 
 
+def test_sources_cover_the_device_grid():
+    """The device grid package is among the checked sources."""
+    checked = {os.path.relpath(p, REPO) for p in _sources()}
+    for name in ("__init__.py", "mesh.py"):
+        assert os.path.join(PKG, "parallel", name) in checked
+
+
 def test_checker_sees_every_import_form(tmp_path):
     pkg = tmp_path / PKG / "sub"
     pkg.mkdir(parents=True)

@@ -18,6 +18,7 @@ from downpore_tpu.utils.kmers import kmer_occurrences, score_seed_values
 import downpore_tpu_torch
 from downpore_tpu_torch.cli.main import main as torch_main
 from downpore_tpu_torch.mapping import Mapper as TorchMapper
+from test_torch_parallel import eight_cpus  # noqa: F401  (fixture)
 
 torch.set_num_threads(2)
 
@@ -206,7 +207,8 @@ def test_map_without_jax_subprocess(capsys, monkeypatch, cli_fixture,
     """The port runs with jax and the JAX package blocked from import:
     sys.modules["jax"] = sys.modules["downpore_tpu"] = None makes any
     ``import jax`` or ``import downpore_tpu...`` raise.  One process runs
-    all nine commands: ``map``, then ``overlap`` and ``correct`` (on the
+    all nine commands: ``map``, ``map -data_parallel true`` (a 1 x 1 grid
+    in the port), then ``overlap`` and ``correct`` (on the
     first 24 reads of test_torch_correct.py's overlap fixture), ``trim``
     (on test_trim_golden.py's fixture), ``help``, ``version``, ``kmers``,
     ``subseq`` (queries on stdin), ``consensus`` and ``align``.  Its
@@ -220,7 +222,8 @@ def test_map_without_jax_subprocess(capsys, monkeypatch, cli_fixture,
                              for n, s in overlap_records()[:24]))
     trim = ["trim", "-input", write_reads(tmp_path / "trim.fastq",
                                           golden_records(), fastq=True)]
-    runs = [cli_fixture, ["overlap", "-input", str(reads)],
+    runs = [cli_fixture, cli_fixture + ["-data_parallel", "true"],
+            ["overlap", "-input", str(reads)],
             ["correct", "-input", str(reads)], trim]
     jax_dir, port_dir = tmp_path / "jax", tmp_path / "port"
     jax_dir.mkdir()
@@ -257,11 +260,32 @@ def test_map_without_jax_subprocess(capsys, monkeypatch, cli_fixture,
         == (jax_dir / kmer_values).read_text()
 
 
-def test_map_cli_rejects_multi_device(monkeypatch, cli_fixture):
+@pytest.mark.parametrize("flag", [["-data_parallel", "true"],
+                                  ["-seed_shards", "2"]])
+def test_map_cli_multi_device_matches_jax(capsys, monkeypatch, cli_fixture,
+                                          eight_cpus, flag):
+    """An 8 x 1 data grid and a 4 x 2 seed-sharded grid (8 CPU entries, the
+    JAX meshes' shapes): stdout and stderr equal the JAX CLI's."""
     monkeypatch.setenv(downpore_tpu_torch.DEVICE_ENV, "cpu")
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        torch_main(cli_fixture + ["-data_parallel", "true"])
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+    jax_main(cli_fixture + flag)
+    ref = capsys.readouterr()
+    torch_main(cli_fixture + flag)
+    got = capsys.readouterr()
+    assert got.out == ref.out
+    assert got.err == ref.err
+    assert len(got.out.splitlines()) >= 24
+
+
+def test_map_cli_seed_shards_on_one_device_raises_like_jax(monkeypatch,
+                                                         cli_fixture):
+    """On one device ``-seed_shards 2`` raises the JAX mesh's ValueError."""
+    import re
+    import jax
+    from downpore_tpu.parallel.mesh import make_mesh
+    monkeypatch.setenv(downpore_tpu_torch.DEVICE_ENV, "cpu")
+    with pytest.raises(ValueError) as ref:
+        make_mesh(n_seed=2, devices=jax.devices()[:1])
+    with pytest.raises(ValueError, match=re.escape(str(ref.value))):
         torch_main(cli_fixture + ["-seed_shards", "2"])
 
 

@@ -202,10 +202,27 @@ def test_pack_query_windows_matches_jax(mappers, monkeypatch):
         np.testing.assert_array_equal(r, p)
 
 
-def test_mesh_raises(mappers):
-    _, jm, _ = mappers
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        tme.MapEngine(jm.index, K, mesh=object(), device=CPU)
+@pytest.mark.parametrize("n_data,n_seed", [(8, 1), (4, 2)])
+def test_mesh_engine_matches_jax(mappers, n_data, n_seed):
+    """An engine on a data grid and on a seed-sharded grid (CPU entries)
+    gives the JAX engine's rows on the same mesh shape; a seed-sharded
+    grid turns bucket derivation off, as in the JAX engine."""
+    from downpore_tpu.parallel.mesh import make_mesh as jax_mesh
+    from downpore_tpu_torch.parallel import make_mesh
+    genome, jm, _ = mappers
+    je = jme.MapEngine(jm.index, K, nq=64, nt=320, lean=True,
+                       mesh=jax_mesh(n_data=n_data, n_seed=n_seed))
+    te = tme.MapEngine(jm.index, K, nq=64, nt=320, lean=True,
+                       mesh=make_mesh(n_data, n_seed,
+                                      [CPU] * (n_data * n_seed)))
+    packed = je.pack_query_windows(windows(genome, 30, 12))
+    base_min = np.maximum(5, packed[6] // 5).astype(np.int32)
+    (h_r, p_r), (h_g, p_g) = _dispatch_both(je, te, packed, base_min)
+    np.testing.assert_array_equal(h_r, h_g)
+    np.testing.assert_array_equal(p_r, p_g)
+    assert h_g.shape[0] >= 30
+    route = "_map_from_counts" if n_seed > 1 else "_fused_map_d"
+    assert dict(te.routes) == {route: n_data}
 
 
 def test_binned_construction_at_patched_thresholds(mappers, monkeypatch):

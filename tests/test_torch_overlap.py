@@ -88,10 +88,20 @@ def test_find_overlaps_matches_jax(reads):
     assert len(got) >= 20
 
 
-def test_overlapper_rejects_a_mesh():
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        TorchOverlapper(SeedIndex(K), 10000, 1000, 10, 0.25, mesh=object(),
-                        device="cpu")
+def test_overlapper_with_a_grid_matches_jax(reads):
+    """A (data 4, seed 2) grid of CPU entries against the JAX overlapper
+    on the same mesh shape."""
+    from downpore_tpu.parallel.mesh import make_mesh as jax_mesh
+    from downpore_tpu_torch.parallel import make_mesh
+    jov, jq = round_setup(reads, JaxOverlapper,
+                          mesh=jax_mesh(n_data=4, n_seed=2))
+    tov, tq = round_setup(reads, TorchOverlapper,
+                          mesh=make_mesh(4, 2, ["cpu"] * 8))
+    key = lambda m: (m.seq_a.id, m.seq_a.offset, m.seq_b.id, m.seq_b.offset,
+                     m.query_id, m.rc_query, m.match_a, m.match_b)
+    got = [key(m) for m in tov.find_overlaps(tq)]
+    assert got == [key(m) for m in jov.find_overlaps(jq)]
+    assert len(got) >= 20
 
 
 def test_overlap_of_an_empty_round():

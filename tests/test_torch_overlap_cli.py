@@ -18,6 +18,7 @@ from downpore_tpu_torch.cli.main import main as torch_main
 from downpore_tpu_torch.overlap import Overlapper as TorchOverlapper
 from test_torch_correct import overlap_records
 from test_torch_overlap import round_setup
+from test_torch_parallel import eight_cpus  # noqa: F401  (fixture)
 
 torch.set_num_threads(2)
 
@@ -102,10 +103,19 @@ def test_command_list_matches_jax_order(capsys):
 
 @pytest.mark.parametrize("flag", [["-data_parallel", "true"],
                                   ["-seed_shards", "2"]])
-def test_overlap_cli_rejects_multi_device(monkeypatch, reads_path, flag):
+def test_overlap_cli_multi_device_matches_jax(capsys, monkeypatch,
+                                              reads_path, eight_cpus, flag):
+    """An 8 x 1 data grid and a 4 x 2 seed-sharded grid (8 CPU entries),
+    several rounds: stdout and stderr equal the JAX CLI's."""
     monkeypatch.setenv(downpore_tpu_torch.DEVICE_ENV, "cpu")
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        torch_main(["overlap", "-input", reads_path] + flag)
+    argv = ["overlap", "-input", reads_path, "-query_batch_size", "24"] \
+        + flag
+    jax_main(argv)
+    ref = capsys.readouterr()
+    torch_main(argv)
+    got = capsys.readouterr()
+    assert got.out == ref.out and got.err == ref.err
+    assert got.out.count("\n") >= 20 and got.err.count("Using query set") >= 2
 
 
 @pytest.fixture(scope="module")

@@ -23,6 +23,7 @@ from downpore_tpu.io import SequenceSet
 from downpore_tpu.trim import trimmer as jtrim
 from downpore_tpu_torch.cli.main import main as torch_main
 from downpore_tpu_torch.trim import trimmer as ttrim
+from test_torch_parallel import eight_cpus  # noqa: F401  (fixture)
 
 torch.set_num_threads(2)
 
@@ -294,11 +295,19 @@ def test_trim_cli_profile_writes_a_trace(capsys, monkeypatch, tmp_path,
     assert os.path.getsize(d / "trace.json") > 0
 
 
-def test_trim_cli_rejects_data_parallel(monkeypatch, golden_path):
+def test_trim_cli_data_parallel_matches_jax(capsys, monkeypatch,
+                                            golden_path, eight_cpus):
+    """``-data_parallel true`` on an 8-way data grid (8 CPU entries) over
+    the golden fixture: stdout and stderr equal the JAX CLI's."""
     monkeypatch.setenv(downpore_tpu_torch.DEVICE_ENV, "cpu")
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        torch_main(["trim", "-input", golden_path, "-data_parallel",
-                    "true"])
+    argv = ["trim", "-input", golden_path, "-data_parallel", "true"]
+    jax_main(argv)
+    ref = capsys.readouterr()
+    torch_main(argv)
+    got = capsys.readouterr()
+    assert got.out == ref.out
+    assert strip_stage(got.err) == strip_stage(ref.err)
+    assert "chimera_(left)" in got.out
 
 
 def test_correct_trim_matches_jax(capsys, monkeypatch, tmp_path):
