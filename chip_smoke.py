@@ -83,7 +83,21 @@ Phases (any failure ends the run with a non-zero exit):
    flag, and ``-seed_shards 2`` against the JAX package's error; seed-
    sharded ``overlap`` (2 x 2) on the first GRID_OV_READS reads of the
    overlap case against the unsharded run; ``trim -data_parallel true``
-   (1 x 1 and a 2-way data grid) against the golden digest.
+   (1 x 1 and a 2-way data grid) against the golden digest;
+10. the seed-query library (``phase_library``): ``ops.match.hit_counts``
+   at [4096, 65536] x [65536, 512] int8 against numpy's int32 product,
+   timed beside its bound; ``hit_counts_packed`` against it;
+   ``chain_batch`` and ``chain_batch_summary`` at P = 4096, NQ = 64,
+   NT = 320, max_anchors = 128 against the CPU's plain run;
+   ``run_chain_batch`` on a same-card 2 x 2 grid against no grid;
+   ``sharded_pipeline_step`` on 1 x 1 and 2 x 2 grids against the
+   unsharded functions; the verify skill's library recipe at a 4.6 Mb
+   genome (every planted position recovered); every chain launch of the
+   phase held against the plain version;
+11. the bench (``phase_bench``): ``downpore_tpu_torch.bench``'s trim, map
+   (4.6 Mb and 1 Mb), overlap and consensus sections at the bench's own
+   sizes; every section must pass and every metric line carry the card's
+   name; their chain and beam launches count in the kernel table.
 
 Every launch a phase records is held against its plain version and
 timed (not counted) beside its bound.  It prints the kernel table as one
@@ -2021,6 +2035,313 @@ def phase_grid(mapper, reads, dev):
     return map_launches + ov_launches + trim_launches, err
 
 
+# the library phase: a map-scale retrieval shape (4096 query rows of a
+# 1 kb window's run buckets against a 2^16-bucket membership of 512
+# chunks) and a chain batch of 4096 pairs, 64 x 320 seeds, 128 anchors
+LIB_Q, LIB_H, LIB_C = 4096, 65_536, 512
+LIB_ROW_BUCKETS = 128
+LIB_MEMBER_DENSITY = 0.02
+LIB_P, LIB_NQ, LIB_NT, LIB_MAX_ANCHORS, LIB_K = 4096, 64, 320, 128, 11
+LIB_PLANTED = 40               # query seeds copied, in order, into the target
+LIB_OVERFLOW_ROWS = 256        # rows drawn from a small alphabet: > 128 matches
+# the verify skill's library recipe at E. coli scale
+RECIPE_GENOME = 4_600_000
+RECIPE_K = 11
+RECIPE_CHUNK = 1000
+RECIPE_QUERIES = 256
+RECIPE_QUERY_LEN = 600
+RECIPE_ERR = 0.03
+# int8 tensor-core peak of one H100 SXM (NVIDIA's data sheet), for the
+# retrieval product's bound
+INT8_OPS_S = 1979e12
+
+
+def library_counts_inputs(rng):
+    """Run multiplicities ``V [LIB_Q, LIB_H]`` int8 (LIB_ROW_BUCKETS bucket
+    draws a row, repeats adding up) and a 0/1 membership ``M [LIB_H,
+    LIB_C]`` int8; and numpy's int32 product of the two, taken over each
+    row's nonzero buckets."""
+    V = np.zeros((LIB_Q, LIB_H), np.int8)
+    np.add.at(V, (np.repeat(np.arange(LIB_Q), LIB_ROW_BUCKETS),
+                  rng.integers(0, LIB_H, LIB_Q * LIB_ROW_BUCKETS)), 1)
+    M = (rng.random((LIB_H, LIB_C)) < LIB_MEMBER_DENSITY).astype(np.int8)
+    ref = np.empty((LIB_Q, LIB_C), np.int32)
+    for q in range(LIB_Q):
+        nz = np.flatnonzero(V[q])
+        ref[q] = V[q, nz].astype(np.int32) @ M[nz].astype(np.int32)
+    return V, M, ref
+
+
+def library_pairs(rng):
+    """``[LIB_P, N]`` seed and position arrays (padded with -1 / 0) whose
+    targets hold a planted run of LIB_PLANTED query seeds at the query's
+    spacing, so chains are long; the first LIB_OVERFLOW_ROWS rows draw
+    from a small alphabet and overflow ``LIB_MAX_ANCHORS``."""
+    P, NQ, NT, R = LIB_P, LIB_NQ, LIB_NT, LIB_PLANTED
+    alpha = np.where(np.arange(P) < LIB_OVERFLOW_ROWS, 150, 5000)[:, None]
+    qs = (rng.random((P, NQ)) * alpha).astype(np.int32)
+    ts = (rng.random((P, NT)) * alpha).astype(np.int32)
+    qgap = rng.integers(6, 40, (P, NQ))
+    tgap = rng.integers(6, 40, (P, NT))
+    rows = np.arange(P)[:, None]
+    q0 = rng.integers(0, NQ // 2 - R // 2, P)[:, None] + np.arange(R)
+    t0 = rng.integers(0, NT - R, P)[:, None] + np.arange(R)
+    ts[rows, t0] = qs[rows, q0]
+    tgap[rows, t0[:, 1:]] = qgap[rows, q0[:, 1:]]
+    qp = np.cumsum(qgap, axis=1).astype(np.int32)
+    tp = np.cumsum(tgap, axis=1).astype(np.int32)
+    for s, p, n in ((qs, qp, NQ), (ts, tp, NT)):
+        dead = np.arange(n)[None, :] >= rng.integers(n - n // 4, n + 1, P)[
+            :, None]
+        s[dead], p[dead] = -1, 0
+    return qs, qp, ts, tp
+
+
+def same_dicts(a: dict, b: dict) -> bool:
+    def host(x):
+        return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    return set(a) == set(b) and all(np.array_equal(host(a[k]), host(b[k]))
+                                    for k in a)
+
+
+def library_recipe(dev):
+    """The verify skill's library recipe at a RECIPE_GENOME-base genome:
+    seed index of RECIPE_CHUNK-base chunks, hashed membership, retrieval
+    counts, candidates, chain DP, and each planted query's genome position
+    (chunk offset + start_tp - start_qp) recovered.  Returns (queries,
+    pairs, recovered, seconds)."""
+    from downpore_tpu_torch.core import Sequence
+    from downpore_tpu_torch.ops import chain, match
+    from downpore_tpu_torch.seeds import SeedIndex
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 70)
+    genome = BASES[rng.integers(0, 4, RECIPE_GENOME)].tobytes().decode()
+    ref = Sequence.from_string(genome, id=0, name="ref")
+    idx = SeedIndex(RECIPE_K)
+    idx.add_single_seeds(ref, 40, np.ones(4 ** RECIPE_K))
+    for lo in range(0, RECIPE_GENOME, RECIPE_CHUNK):
+        idx.add_sequence(idx.new_seed_sequence(
+            ref.subsequence(lo, lo + RECIPE_CHUNK)))
+    idx.index_sequences()
+    usable = idx._seed_counts < idx.num_sequences
+    M = match.build_membership([s.seeds for s in idx.sequences],
+                               idx.num_seeds)
+    starts = rng.integers(0, RECIPE_GENOME - RECIPE_QUERY_LEN,
+                          RECIPE_QUERIES)
+    queries = []
+    for i, p in enumerate(starts):
+        arr = np.frombuffer(genome[p:p + RECIPE_QUERY_LEN].encode(),
+                            np.uint8).copy()
+        m = rng.random(RECIPE_QUERY_LEN) < RECIPE_ERR
+        arr[m] = BASES[rng.integers(0, 4, int(m.sum()))]
+        queries.append(idx.new_seed_sequence(Sequence.from_string(
+            arr.tobytes().decode(), id=i, name=f"q{i}")))
+    V, _, num_sets = match.build_query_rows(queries, idx.num_seeds, usable)
+    counts = match.hit_counts(V, M, device=dev)
+    cands = match.candidates_from_counts(counts, num_sets, 0.25)
+    qi = np.repeat(np.arange(len(queries)), [len(c) for c in cands])
+    ci = np.concatenate(cands)
+    k = RECIPE_K
+    out = chain.run_chain_batch(
+        [queries[q].seeds for q in qi],
+        [queries[q].seed_positions(k) for q in qi],
+        [idx.sequences[c].seeds for c in ci],
+        [idx.sequences[c].seed_positions(k) for c in ci], k, nq=128,
+        nt=256, max_anchors=512, device=dev)
+    best = out["through"].max(axis=1)
+    recovered = 0
+    for q, p in enumerate(starts):
+        rows = np.flatnonzero(qi == q)
+        if not rows.size:
+            continue
+        r = rows[np.argmax(best[rows])]
+        a = int(np.argmax(out["through"][r]))
+        found = int(ci[r]) * RECIPE_CHUNK + int(out["start_tp"][r][a]) \
+            - int(out["start_qp"][r][a])
+        recovered += found == p
+    log(f"library recipe: {RECIPE_GENOME} b genome, k = {k}, "
+        f"{idx.num_sequences} chunks of {RECIPE_CHUNK} b, {idx.num_seeds} "
+        f"seeds hashed to H = {M.shape[0]}; {len(queries)} queries of "
+        f"{RECIPE_QUERY_LEN} b at {RECIPE_ERR} substitutions; {len(ci)} "
+        f"candidate pairs; planted position recovered exactly for "
+        f"{recovered} of {len(queries)}")
+    return len(queries), len(ci), recovered, time.perf_counter() - t0
+
+
+def phase_library(dev):
+    """The seed-query library on the card: ``hit_counts`` at the map
+    path's retrieval shape against numpy's int32 product, timed beside its
+    bound; ``hit_counts_packed`` against it; ``chain_batch`` and
+    ``chain_batch_summary`` against the CPU's plain run; ``run_chain_batch``
+    on a same-card 2 x 2 grid against no grid; ``sharded_pipeline_step``
+    on a 1 x 1 and a same-card 2 x 2 grid against the unsharded functions;
+    the verify skill's recipe.  Every chain launch of the phase is
+    recorded and held against the plain scan.  Returns (chain launches,
+    max abs error of those launches, hit_counts (ms, packed ms, bound ms,
+    bound_by))."""
+    from downpore_tpu_torch.ops import chain, cuda_chain, match
+    from downpore_tpu_torch.parallel import make_mesh, sharded_pipeline_step
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 60)
+    t0 = time.perf_counter()
+    V, M, ref = library_counts_inputs(rng)
+    log(f"library inputs: V [{LIB_Q}, {LIB_H}] int8 ({int((V > 0).sum())} "
+        f"nonzero), M [{LIB_H}, {LIB_C}] int8 ({int(M.sum())} ones), "
+        f"numpy's product in {time.perf_counter() - t0:.1f} s")
+    Vd, Md = torch.from_numpy(V).to(dev), torch.from_numpy(M).to(dev)
+    got = match.hit_counts(Vd, Md).cpu().numpy()
+    if got.dtype != np.int32 or not np.array_equal(got, ref):
+        raise SystemExit("hit_counts differs from numpy's int32 product")
+    hc_ms = min(cuda_ms(lambda: match.hit_counts(Vd, Md), 20)
+                for _ in range(2))
+    t_ops = 2 * LIB_Q * LIB_H * LIB_C / INT8_OPS_S
+    t_bytes = (V.nbytes + M.nbytes + got.nbytes) / HBM_BYTES_S
+    hc_bound = (max(t_ops, t_bytes) * 1e3,
+                "operations" if t_ops >= t_bytes else "bytes")
+    log(f"hit_counts [{LIB_Q}, {LIB_H}] x [{LIB_H}, {LIB_C}] "
+        f"(torch._int_mm): equal to numpy's int32 product; {hc_ms:.4f} ms; "
+        f"bound {hc_bound[0]:.4f} ms ({hc_bound[1]}: int8 operations "
+        f"{t_ops * 1e3:.4f} ms at {INT8_OPS_S / 1e12:.0f} T/s, bytes "
+        f"{t_bytes * 1e3:.4f} ms), share {hc_bound[0] / hc_ms:.3f}")
+    packed = torch.from_numpy(np.packbits(V != 0, axis=1)).to(dev)
+    bits = match.hit_counts((Vd != 0).to(torch.int8), Md)
+    if not torch.equal(match.hit_counts_packed(packed, Md), bits):
+        raise SystemExit("hit_counts_packed differs from hit_counts")
+    pk_ms = cuda_ms(lambda: match.hit_counts_packed(packed, Md), 20)
+    log(f"hit_counts_packed on the same rows bit-packed: equal to "
+        f"hit_counts; {pk_ms:.4f} ms")
+    del Vd, packed, bits
+
+    calls = []
+    cuda_chain.chain_scan.launches = 0
+    with patched([(cuda_chain, "_launch", recording(
+            cuda_chain._launch, cuda_chain.chain_scan_plain, calls))]):
+        qs, qp, ts, tp = library_pairs(rng)
+        mm = rng.integers(2, 8, LIB_P).astype(np.int32)
+        alen = rng.integers(500, 3000, LIB_P).astype(np.int32)
+        args = dict(k=LIB_K, max_anchors=LIB_MAX_ANCHORS)
+        t0 = time.perf_counter()
+        card = chain.chain_batch(qs, qp, ts, tp, device=dev, **args)
+        card_sum = chain.chain_batch_summary(qs, qp, ts, tp, mm, alen,
+                                             device=dev, **args)
+        sync(dev)
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = chain.chain_batch(qs, qp, ts, tp, device="cpu", **args)
+        cpu_sum = chain.chain_batch_summary(qs, qp, ts, tp, mm, alen,
+                                            device="cpu", **args)
+        t_cpu = time.perf_counter() - t0
+        over = card["overflow"].cpu().numpy()
+        same = same_dicts(card, cpu) and torch.equal(card_sum.cpu(), cpu_sum)
+        log(f"chain_batch + chain_batch_summary [{LIB_P}, {LIB_NQ}] x "
+            f"[{LIB_P}, {LIB_NT}], max_anchors {LIB_MAX_ANCHORS}: card "
+            f"{t_card:.3f} s, CPU plain {t_cpu:.3f} s; "
+            f"{int(card['valid'].sum())} anchors, {int((over > 0).sum())} "
+            f"pairs overflowing by up to {int(over.max())}; best chain "
+            f"{int(card['through'].max())}; equal to the CPU's: {same}")
+        if not same:
+            raise SystemExit("chain_batch on the card differs from the CPU")
+        if not (over > 0).any():
+            raise SystemExit("the library pairs never overflow max_anchors")
+
+        live_q, live_t = qs >= 0, ts >= 0
+        lists = [[a[i][live[i]] for i in range(LIB_P)]
+                 for a, live in ((qs, live_q), (qp, live_q), (ts, live_t),
+                                 (tp, live_t))]
+        grid = make_mesh(2, 2, [dev] * 4)
+        one = chain.run_chain_batch(*lists, LIB_K, LIB_NQ, LIB_NT,
+                                    LIB_MAX_ANCHORS, device=dev)
+        two = chain.run_chain_batch(*lists, LIB_K, LIB_NQ, LIB_NT,
+                                    LIB_MAX_ANCHORS, mesh=grid)
+        if not same_dicts(one, two) or not same_dicts(one, card):
+            raise SystemExit("run_chain_batch on a 2 x 2 grid differs from "
+                             "no grid")
+        through = card["through"].cpu().numpy()
+        for name, g in (("1 x 1", make_mesh(1, 1, [dev])), ("2 x 2", grid)):
+            c, th = sharded_pipeline_step(g, k=LIB_K,
+                                          max_anchors=LIB_MAX_ANCHORS)(
+                V, M, qs, qp, ts, tp)
+            if not np.array_equal(c, ref) or not np.array_equal(th, through):
+                raise SystemExit(f"sharded_pipeline_step ({name}) differs "
+                                 f"from hit_counts and chain_batch")
+        log("run_chain_batch on a same-card 2 x 2 grid equal to no grid; "
+            "sharded_pipeline_step on 1 x 1 and 2 x 2 grids equal to "
+            "hit_counts and chain_batch")
+        n_q, n_pairs, recovered, t_recipe = library_recipe(dev)
+        if recovered != n_q:
+            raise SystemExit(f"the library recipe recovered {recovered} of "
+                             f"{n_q} planted positions")
+    launches = cuda_chain.chain_scan.launches
+    log(f"library phase: chain_scan launches {launches}; their "
+        f"{len(calls)} recorded launches against the plain version:")
+    err = check_recorded(calls).get("chain_scan", 0)
+    if launches <= 0 or len(calls) != launches:
+        raise SystemExit("the library phase's chain launches were not all "
+                         "recorded")
+    log(f"phase_library: {time.perf_counter() - t_phase:.1f} s (recipe "
+        f"{t_recipe:.1f} s)")
+    return launches, err, (hc_ms, pk_ms) + hc_bound
+
+
+# the bench sections this smoke runs at the bench's own sizes: the GB
+# tails are left to the bench's own run (phase_trim and phase_overlap
+# already drive those commands at that scale), and phase_chromosome runs
+# the 64 Mb map case's recipe
+BENCH_SECTIONS = ("trim", "map", "overlap", "consensus")
+BENCH_METRICS = ["trim_reads_per_s", "map_bases_per_s", "map_1mb_bases_per_s",
+                 "overlap_bases_per_s", "consensus_bases_per_s"]
+
+
+def phase_bench(dev):
+    """``downpore_tpu_torch.bench``'s BENCH_SECTIONS on the card (map: the
+    4.6 Mb and 1 Mb cases), its files in a temporary directory: every
+    section must pass and every metric line carry the card's name.
+    Returns the metric rows and the chain and beam launches of the run."""
+    import io
+    import tempfile
+    import downpore_tpu_torch.bench as bench
+    from downpore_tpu_torch.ops import cuda_beam, cuda_chain
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    old_tmp = tempfile.tempdir
+    with tempfile.TemporaryDirectory() as d:
+        tempfile.tempdir = d
+        try:
+            with patched([(bench, "RUNNING_JSON",
+                           os.path.join(d, "running.jsonl")),
+                          (bench, "MAP_CASES", bench.MAP_CASES[:2])]):
+                cuda_chain.chain_scan.launches = 0
+                cuda_beam.beam_consensus.launches = 0
+                with contextlib.redirect_stdout(out):
+                    rc = bench.main(list(BENCH_SECTIONS))
+                sync(dev)
+                launches = {
+                    "chain_scan": cuda_chain.chain_scan.launches,
+                    "beam_consensus": cuda_beam.beam_consensus.launches}
+        finally:
+            tempfile.tempdir = old_tmp
+    rows = [json.loads(ln) for ln in out.getvalue().splitlines()
+            if ln.startswith("{")]
+    for r in rows:
+        log(f"bench {json.dumps(r)}")
+    log(f"phase_bench: sections {list(BENCH_SECTIONS)}, exit {rc}, "
+        f"{len(rows)} metric lines, launches {launches}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if rc != 0:
+        raise SystemExit(f"the bench exited {rc}")
+    if [r["metric"] for r in rows] != BENCH_METRICS:
+        raise SystemExit(f"the bench printed {[r['metric'] for r in rows]}")
+    name = torch.cuda.get_device_name(0)
+    if any(name not in r.get("device", "") for r in rows):
+        raise SystemExit("a bench line lacks the card's name")
+    if launches["chain_scan"] <= 0 or launches["beam_consensus"] <= 0:
+        raise SystemExit(f"the bench sections launched {launches}")
+    return rows, launches
+
+
 def own_imports() -> set:
     """Top-level names of the modules this script imports itself."""
     import ast
@@ -2083,9 +2404,11 @@ def main() -> int:
     phase_correct_card_vs_cpu()
     ov_launches, ov_err = phase_overlap(dev)
     trim_launches, trim_err = phase_trim(dev)
+    lib_launches, lib_err, hc = phase_library(dev)
+    _, bench_launches = phase_bench(dev)
     if "jax" in sys.modules:
-        raise SystemExit("the port's map, overlap, correct or trim path "
-                         "imported jax")
+        raise SystemExit("the port's map, overlap, correct, trim, library "
+                         "or bench path imported jax")
     jax_pkg = sorted(m for m in sys.modules
                      if m == "downpore_tpu" or m.startswith("downpore_tpu."))
     if jax_pkg:
@@ -2097,9 +2420,12 @@ def main() -> int:
     log(f"launches by path: map chain_scan {map_launches}; chromosome map "
         f"chain_scan {chr_launches}; correct {correct_launches}; overlap "
         f"chain_scan {ov_launches}; trim chain_scan {trim_launches}; "
-        f"grid paths chain_scan {grid_launches}; "
+        f"grid paths chain_scan {grid_launches}; library chain_scan "
+        f"{lib_launches}; bench sections {bench_launches}; "
         f"chain_scan by mode over the whole run "
         f"{dict(cuda_chain.MODE_LAUNCHES)}")
+    log(f"hit_counts (a library product, not a TPU kernel): {hc[0]:.4f} "
+        f"ms, packed {hc[1]:.4f} ms, bound {hc[2]:.4f} ms ({hc[3]})")
     log("chain_scan at the path shapes: " + "; ".join(
         f"{n} {ms:.4f} ms, bound {b:.4f} ms ({by})"
         for n, ms, b, by in chain_rows))
@@ -2113,9 +2439,9 @@ def main() -> int:
         "replaces": "downpore_tpu/ops/pallas_chain.py:42",
         "launches": map_launches + chr_launches
         + correct_launches["chain_scan"] + ov_launches + trim_launches
-        + grid_launches,
+        + grid_launches + lib_launches + bench_launches["chain_scan"],
         "max_abs_err": max(max_err, chr_err, correct_errs["chain_scan"],
-                           ov_err, trim_err, grid_err),
+                           ov_err, trim_err, grid_err, lib_err),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": chain_bound_ms,
         "bound_by": chain_by, "library_ms": None}, {
         "name": "update_bands", "route": "cuda",
@@ -2127,7 +2453,8 @@ def main() -> int:
         "name": "beam_consensus", "route": "cuda",
         "source": "downpore_tpu_torch/csrc/beam_consensus.cu",
         "replaces": "downpore_tpu/ops/pallas_beam.py:105",
-        "launches": correct_launches["beam_consensus"],
+        "launches": correct_launches["beam_consensus"]
+        + bench_launches["beam_consensus"],
         "max_abs_err": max(beam_err, correct_errs["beam_consensus"]),
         "ms": beam_ms, "plain_ms": beam_plain_ms, "bound_ms": beam_bound_ms,
         "bound_by": beam_by, "library_ms": None}]

@@ -13,7 +13,11 @@ inputs.
 Ported: the ``trim``, ``map`` (flat and binned retrieval gates),
 ``overlap`` and ``correct`` commands, and the host commands ``subseq``,
 ``consensus``, ``align``, ``kmers`` and ``version``; their multi-device
-paths run on a (data, seed) grid of torch devices (``parallel``).
+paths run on a (data, seed) grid of torch devices (``parallel``).  Beside
+them: the seed-query library (``ops.match`` retrieval counts,
+``ops.chain.chain_batch`` and its wrappers, ``parallel``'s sharded
+pipeline step), the read simulator (``sim``) and the benchmark suite
+(``python -m downpore_tpu_torch.bench``).
 """
 from __future__ import annotations
 

@@ -24,8 +24,10 @@ every rank's devices in rank order; each process runs only the shards on
 its own devices, and the collect steps all-gather the shards' rows, so
 that every process returns the full output.
 
-``sharded_hit_counts``, ``sharded_chain`` and ``sharded_pipeline_step``
-of the JAX module serve only its example entry point and are not ported.
+The query pipeline's sharded step (``sharded_hit_counts``,
+``sharded_chain``, ``sharded_pipeline_step``) places its shards the same
+way and returns host arrays.  Like the JAX functions, it raises
+``ValueError`` on a shape that the grid does not divide.
 """
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..ops.chain import chain_batch
+from ..ops.match import hit_counts
 
 
 def _distributed() -> bool:
@@ -230,3 +234,100 @@ def sharded_kmer_histogram(mesh: DeviceGrid, k: int):
         return total
 
     return hist
+
+
+def _divides(n: int, parts: int, what: str):
+    """The JAX functions' check: a sharded axis must split evenly."""
+    if n % parts:
+        raise ValueError(f"{what} of size {n} is not divisible by the "
+                         f"grid's {parts} shard(s) on it")
+
+
+def _grid_counts(mesh: DeviceGrid, V, M) -> Dict[int, np.ndarray]:
+    """Per owned data shard: ``{first row: int32 counts}`` of its V rows,
+    the seed shards' partial products summed on the data shard's device."""
+    D, S = mesh.shape["data"], mesh.shape["seed"]
+    Q, H = V.shape
+    _divides(Q, D, "V's rows (data axis)")
+    _divides(H, S, "V's columns (seed axis)")
+    _divides(M.shape[0], S, "M's rows (seed axis)")
+    qb, hb, mb = Q // D, H // S, M.shape[0] // S
+    parts = {}
+    for d in range(D):
+        if not mesh.owns(d):
+            continue
+        total = None
+        for s in range(S):
+            dev = mesh.devices[d, s]
+            part = hit_counts(_to(V[d * qb:(d + 1) * qb, s * hb:(s + 1) * hb],
+                                  dev),
+                              _to(M[s * mb:(s + 1) * mb], dev))
+            part = part.to(mesh.data_device(d))
+            total = part if total is None else total + part
+        parts[d * qb] = total.cpu().numpy()
+    return parts
+
+
+def sharded_hit_counts(mesh: DeviceGrid):
+    """``V [Q, H] x M [H, C] -> counts [Q, C]`` int32 (numpy) with V split
+    by rows over the data shards and by columns over the seed shards, and
+    M by rows over the seed shards: each shard's int32 partial product is
+    summed on its data shard's device (the JAX function's psum over
+    ``seed``), and the data shards' rows concatenate in order."""
+    def counts(V, M) -> np.ndarray:
+        return np.concatenate(mesh.gather(_grid_counts(mesh, V, M)))
+
+    return counts
+
+
+CHAIN_OUTS = ("through", "cov_q", "cov_t", "start_qp", "start_tp", "end_qp",
+              "end_tp")
+
+
+def sharded_chain(mesh: DeviceGrid, k: int, max_anchors: int):
+    """Chain DP over a pair batch split over every device of the grid in
+    (data, seed) order, as ``PartitionSpec(("data", "seed"))`` splits it:
+    returns the numpy ``(through, cov_q, cov_t, start_qp, start_tp,
+    end_qp, end_tp)`` of ``chain_batch``, rows in order."""
+    entries = list(zip(mesh.devices.ravel(), mesh.ranks.ravel()))
+    rank = _rank()
+
+    def run(qs, qp, ts, tp):
+        E = len(entries)
+        _divides(qs.shape[0], E, "the pair batch (data x seed axes)")
+        rows = qs.shape[0] // E
+        parts = {}
+        for e, (dev, owner) in enumerate(entries):
+            if owner != rank:
+                continue
+            sl = slice(e * rows, (e + 1) * rows)
+            out = chain_batch(*[_to(a[sl], dev) for a in (qs, qp, ts, tp)],
+                              k=k, max_anchors=max_anchors)
+            parts[e * rows] = [out[n].cpu().numpy() for n in CHAIN_OUTS]
+        parts = mesh.gather(parts)
+        return tuple(np.concatenate([p[i] for p in parts])
+                     for i in range(len(CHAIN_OUTS)))
+
+    return run
+
+
+def sharded_pipeline_step(mesh: DeviceGrid, k: int = 6,
+                          max_anchors: int = 64):
+    """The full sharded query step: retrieval (``sharded_hit_counts``)
+    followed by the chain DP over the pairs split on the data axis.
+    Returns numpy ``(counts, through)``: the multi-device execution shape
+    of the trim/map/overlap inner loop."""
+    counts_fn = sharded_hit_counts(mesh)
+
+    def run(V, M, qseeds, qpos, tseeds, tpos):
+        counts = counts_fn(V, M)
+        _divides(qseeds.shape[0], mesh.shape["data"],
+                 "the pair batch (data axis)")
+        parts = {}
+        for _, lo, blocks in mesh.split_rows([qseeds, qpos, tseeds, tpos],
+                                             [-1, 0, -1, 0]):
+            out = chain_batch(*blocks, k=k, max_anchors=max_anchors)
+            parts[lo] = out["through"].cpu().numpy()
+        return counts, np.concatenate(mesh.gather(parts))
+
+    return run

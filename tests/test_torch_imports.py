@@ -64,6 +64,15 @@ def test_sources_cover_the_device_grid():
         assert os.path.join(PKG, "parallel", name) in checked
 
 
+def test_sources_cover_the_library_sim_and_bench():
+    """The seed-query library, the simulator and the bench are among the
+    checked sources."""
+    checked = {os.path.relpath(p, REPO) for p in _sources()}
+    for path in (("bench.py",), ("sim", "__init__.py"), ("ops", "match.py"),
+                 ("ops", "chain.py"), ("parallel", "mesh.py")):
+        assert os.path.join(PKG, *path) in checked
+
+
 def test_checker_sees_every_import_form(tmp_path):
     pkg = tmp_path / PKG / "sub"
     pkg.mkdir(parents=True)

@@ -721,3 +721,58 @@ def test_correct_on_card_does_not_fall_back(cuda_device, monkeypatch):
     monkeypatch.setattr(torch_consensus, "build_consensus_bulk", fail)
     with pytest.raises(RuntimeError, match="kernel failed"):
         smoke.run_correct(smoke.golden_overlap_records()[:32], "cuda")
+
+
+def test_hit_counts_checks_shapes():
+    from downpore_tpu_torch.ops import match
+    v = torch.zeros((4, 16), dtype=torch.int8)
+    with pytest.raises(ValueError):
+        match.hit_counts(v, torch.zeros((15, 8), dtype=torch.int8))
+    got = match.hit_counts(v, torch.ones((16, 8), dtype=torch.int8))
+    assert got.dtype == torch.int32 and got.shape == (4, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,S,C", [(5, 203, 19), (17, 64, 8),
+                                   (64, 1000, 130)])
+def test_hit_counts_on_card_matches_int32_product(cuda_device, Q, S, C):
+    """``torch._int_mm``'s shape rules (more than 16 rows, K and N
+    multiples of 8) met by zero padding: the counts equal numpy's int32
+    product, negative multiplicities included; the bit-packed route equals
+    the unpacked one."""
+    from downpore_tpu_torch.ops import match
+    rng = np.random.default_rng(Q + S + C)
+    V = rng.integers(-128, 128, (Q, S)).astype(np.int8)
+    M = rng.integers(0, 2, (S, C)).astype(np.int8)
+    got = match.hit_counts(V, M, device=cuda_device)
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert np.array_equal(got.cpu().numpy(),
+                          V.astype(np.int32) @ M.astype(np.int32))
+    bits = (V > 0).astype(np.uint8)
+    packed = torch.from_numpy(np.packbits(bits, axis=1)).to(cuda_device)
+    assert torch.equal(match.hit_counts_packed(packed, M),
+                       match.hit_counts(bits.astype(np.int8), M,
+                                        device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_chain_batch_on_card_matches_cpu(cuda_device):
+    """``chain_batch`` (make_anchors, overflow included, then one fb
+    launch) on the card equals the CPU's plain run."""
+    from downpore_tpu_torch.ops import chain
+    rng = np.random.default_rng(8)
+    P, NQ, NT = 48, 24, 40
+    qs = rng.integers(0, 10, (P, NQ)).astype(np.int32)
+    ts = rng.integers(0, 10, (P, NT)).astype(np.int32)
+    qs[0] = -1
+    qp = np.cumsum(rng.integers(1, 30, (P, NQ)), axis=1).astype(np.int32)
+    tp = np.cumsum(rng.integers(1, 30, (P, NT)), axis=1).astype(np.int32)
+    before = cuda_chain.chain_scan.launches
+    got = chain.chain_batch(qs, qp, ts, tp, k=6, max_anchors=64,
+                            device=cuda_device)
+    assert cuda_chain.chain_scan.launches == before + 1
+    ref = chain.chain_batch(qs, qp, ts, tp, k=6, max_anchors=64,
+                            device="cpu")
+    assert int(ref["overflow"].max()) > 0
+    for key in ref:
+        assert torch.equal(got[key].cpu(), ref[key]), key

@@ -1,19 +1,21 @@
 """The realistic fixtures of test_realistic.py through both packages, on
 the CPU, at shapes no larger than theirs: ONT-like reads (~10% error, homopolymer-biased
 deletions) from genomes with planted tandem repeats and low-complexity
-tracts (``downpore_tpu.sim``).  The port's outputs must equal the JAX
-package's (tolerance 0), unsharded and, for map and overlap, on a
-(data 2, seed 2) grid of CPU entries; the planted-truth scores of the
-JAX tests must hold for the port's output too."""
+tracts (the port's ``downpore_tpu_torch.sim``, which equals the JAX
+package's ``sim`` from the same seed: test_torch_library.py).  The port's
+outputs must equal the JAX package's (tolerance 0), unsharded and, for
+map and overlap, on a (data 2, seed 2) grid of CPU entries; the
+planted-truth scores of the JAX tests must hold for the port's output
+too."""
 import numpy as np
 import torch
 
 from downpore_tpu.core import Sequence as JaxSequence
-from downpore_tpu.sim import (ont_read, sample_reads, score_mappings,
-                              structured_genome, random_genome)
 from downpore_tpu.utils.kmers import kmer_occurrences, score_seed_values
 from downpore_tpu_torch.core import Sequence
 from downpore_tpu_torch.parallel import make_mesh
+from downpore_tpu_torch.sim import (ont_read, random_genome, sample_reads,
+                                    score_mappings, structured_genome)
 
 torch.set_num_threads(2)
 
