@@ -97,7 +97,18 @@ Phases (any failure ends the run with a non-zero exit):
 11. the bench (``phase_bench``): ``downpore_tpu_torch.bench``'s trim, map
    (4.6 Mb and 1 Mb), overlap and consensus sections at the bench's own
    sizes; every section must pass and every metric line carry the card's
-   name; their chain and beam launches count in the kernel table.
+   name; their chain and beam launches count in the kernel table;
+12. the dispatch / collect contract (``phase_dispatch``, run from the
+   phases that build each path: ``DISPATCH_CASES``): one full-width
+   dispatch of map 4.6 Mb, of the same map on the 2 x 2 grid, of map 64
+   Mb (binned), of an overlap sub-batch (round 2's engine) and of a trim
+   edge and a middle batch runs under ``torch.cuda.
+   set_sync_debug_mode("error")``, so any wait on the card fails the run;
+   each prints its host wall time beside the device span of the work it
+   enqueued, the re-runs of its collect, and the device time its padding
+   slots cost (profiled dispatch + collect at the path's budget against
+   the exact budget).  The timed passes of the map, grid, overlap and
+   trim phases print their re-runs at collect too.
 
 Every launch a phase records is held against its plain version and
 timed (not counted) beside its bound.  It prints the kernel table as one
@@ -381,18 +392,21 @@ def phase_slice(dev, genome_len: int = GENOME, n_reads: int = N_READS):
     eng.routes.clear()
     cuda_chain.chain_scan.launches = 0
     walls = []
-    for _ in range(TIMED_PASSES):
-        t0 = time.perf_counter()
-        results = mapper.map_batch(reads)
-        sync(dev)
-        walls.append(time.perf_counter() - t0)
+    with counted_reruns() as reruns:
+        for _ in range(TIMED_PASSES):
+            t0 = time.perf_counter()
+            results = mapper.map_batch(reads)
+            sync(dev)
+            walls.append(time.perf_counter() - t0)
     launches = cuda_chain.chain_scan.launches
     routes = dict(eng.routes)
     wall = float(np.median(walls))
     log(f"map_batch, {TIMED_PASSES} passes: wall "
         f"{', '.join(f'{w:.4f}' for w in walls)} s; median {wall:.4f} s = "
         f"{len(reads) / wall:.1f} reads/s, {bases / wall:.0f} bases/s "
-        f"({bases} bases); chain_scan launches {launches}; routes {routes}")
+        f"({bases} bases); chain_scan launches {launches}; routes {routes}; "
+        f"re-runs at collect {reruns['reruns']} of "
+        f"{sum(routes.values())} dispatches")
     if launches <= 0:
         raise SystemExit("the map path launched no chain_scan kernel")
     if routes.get("_fused_map_d", 0) <= 0:
@@ -474,17 +488,122 @@ def device_busy(events, wall_s: float) -> str:
             f"idle share {1 - busy_ms / (wall_s * 1e3):.4f}")
 
 
-def timed(fn, key: str, spent: dict, dev):
-    """``fn`` that adds its seconds, up to a device synchronize, to
-    ``spent[key]``."""
+def timed(fn, key: str, spent: dict, dev, wait: bool = True):
+    """``fn`` that adds its seconds, up to a device synchronize (with
+    ``wait``; a dispatch is timed without one, so that the work it enqueues
+    still overlaps what its caller does next), to ``spent[key]``."""
     def wrapper(*a, **kw):
         t = time.perf_counter()
         try:
             return fn(*a, **kw)
         finally:
-            sync(dev)
+            if wait:
+                sync(dev)
             spent[key] += time.perf_counter() - t
     return wrapper
+
+
+@contextlib.contextmanager
+def counted_reruns():
+    """A Counter whose ``reruns`` counts the re-runs at collect
+    (``transfer.Pending.rerun``) in the block."""
+    from collections import Counter
+    from downpore_tpu_torch.ops import transfer
+    counts = Counter()
+    rerun = transfer.Pending.rerun
+
+    def counting(self, *args):
+        counts["reruns"] += 1
+        return rerun(self, *args)
+    with patched([(transfer.Pending, "rerun", counting)]):
+        yield counts
+
+
+DISPATCH_ROWS = []      # phase_dispatch's results, in the order measured
+# the paths phase_dispatch holds to the contract, each from its phase
+DISPATCH_CASES = ("map 4.6 Mb", "map 4.6 Mb on the 2 x 2 grid",
+                  "map 64 Mb", "overlap sub-batch", "trim edge batch",
+                  "trim middle batch")
+
+
+def _profiled_busy_ms(run) -> float:
+    """Device busy milliseconds (``device_busy``'s union of device spans)
+    of ``run()`` and a synchronize, under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return _busy_us((e.time_range.start, e.time_range.end)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA
+                    and not e.is_user_annotation) / 1e3
+
+
+def phase_dispatch(name: str, dispatch, collect, need):
+    """One engine dispatch at full width, held to the dispatch / collect
+    contract.  ``dispatch(budget)`` enqueues the work (``budget`` None:
+    the path's own budgets) and returns its pending blocks; ``collect``
+    makes them exact and fetches them; ``need(futs)``, after collect, is
+    the largest passing count of a block.  After a warm dispatch and
+    collect: the dispatch runs under ``torch.cuda.set_sync_debug_mode(
+    "error")`` (any wait on the card raises and fails the run), its host
+    wall time is taken beside the device span between CUDA events around
+    it, and the re-runs of its collect are counted; then the device busy
+    time of dispatch + collect under torch.profiler at the path's budget
+    and at the exact budget (the largest passing count: no padding slot,
+    no re-run) gives the device time the padding costs."""
+    collect(dispatch(None))
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        futs = dispatch(None)
+        host_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    e1.record()
+    e1.synchronize()
+    span_ms = e0.elapsed_time(e1)
+    with counted_reruns() as reruns:
+        collect(futs)
+    n = need(futs)
+    busy = _profiled_busy_ms(lambda: collect(dispatch(None)))
+    busy_exact = _profiled_busy_ms(lambda: collect(dispatch(max(1, n))))
+    row = {"name": name, "dispatch_ms": host_ms, "device_span_ms": span_ms,
+           "device_busy_ms": busy, "exact_budget": n,
+           "exact_busy_ms": busy_exact, "padding_ms": busy - busy_exact,
+           "reruns": reruns["reruns"]}
+    DISPATCH_ROWS.append(row)
+    log(f"phase_dispatch {name}: dispatch {host_ms:.3f} ms on the host under "
+        f"set_sync_debug_mode('error') (no wait), device span of the work "
+        f"it enqueued {span_ms:.3f} ms; device busy (dispatch + collect) "
+        f"{busy:.3f} ms at the path's budget, {busy_exact:.3f} ms at the "
+        f"exact budget {n}: padding {busy - busy_exact:.3f} ms; re-runs at "
+        f"collect {reruns['reruns']}")
+    return row
+
+
+def map_dispatch_case(name: str, mapper, reads):
+    """``phase_dispatch`` of one map dispatch: the end windows of the first
+    2048 reads (4096 windows, the mapper's dispatch size)."""
+    eng = mapper.engine
+    es = mapper.edge_size
+    wins = []
+    for r in reads[:2048]:
+        wins += [r.subsequence(0, es), r.subsequence(len(r) - es, len(r))]
+    packed = eng.pack_query_windows(wins)
+    base_min = np.maximum(5, packed[6] // 5).astype(np.int32)
+    return phase_dispatch(
+        name, lambda b: eng.dispatch_packed(packed, base_min,
+                                            pair_budget=b or 0),
+        lambda f: eng.collect_arrays_many([f]),
+        lambda f: max(int(p.host.wait()[0][0]) for p in f[1]))
 
 
 @contextlib.contextmanager
@@ -1277,11 +1396,12 @@ def phase_chromosome(dev):
     eng.bins.clear()
     cuda_chain.chain_scan.launches = 0
     walls = []
-    for _ in range(TIMED_PASSES):
-        t0 = time.perf_counter()
-        results = mapper.map_batch(reads)
-        sync(dev)
-        walls.append(time.perf_counter() - t0)
+    with counted_reruns() as reruns:
+        for _ in range(TIMED_PASSES):
+            t0 = time.perf_counter()
+            results = mapper.map_batch(reads)
+            sync(dev)
+            walls.append(time.perf_counter() - t0)
     launches = cuda_chain.chain_scan.launches
     routes = dict(eng.routes)
     wall = float(np.median(walls))
@@ -1291,8 +1411,9 @@ def phase_chromosome(dev):
         f"{bases / wall:.0f} bases/s ({bases} bases); chain_scan launches "
         f"{launches}; routes {routes}; binned dispatches by (n_bin, BB) "
         f"{dict(sorted(eng.bins.items()))}: largest n_bin {n_bin}, final BB "
-        f"{max(bb for _, bb in eng.bins)}; peak device memory "
-        f"{torch.cuda.max_memory_allocated()} bytes")
+        f"{max(bb for _, bb in eng.bins)}; re-runs at collect "
+        f"{reruns['reruns']} of {sum(routes.values())} dispatches; peak "
+        f"device memory {torch.cuda.max_memory_allocated()} bytes")
     if launches <= 0:
         raise SystemExit("the chromosome map launched no chain_scan kernel")
     if routes.get("_fused_map_bd", 0) <= 0:
@@ -1303,6 +1424,7 @@ def phase_chromosome(dev):
     if rec < RECALL_MIN:
         raise SystemExit(f"chromosome recall {rec:.4f} < {RECALL_MIN}")
     phase_profile(mapper, reads, PROFILE_CHR_OUT)
+    map_dispatch_case("map 64 Mb (binned gate)", mapper, reads)
     phase_card_vs_cpu(mapper, reads, CHR_PAF_READS)
     return launches, err
 
@@ -1410,7 +1532,9 @@ def phase_overlap(dev):
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     prof_t0 = []
     launch = cuda_chain._launch
-    find_timed = timed(Overlapper.dispatch_find, "find", spent, dev)
+    find_timed = timed(Overlapper.dispatch_find, "find", spent, dev,
+                       wait=False)
+    kept = {}       # round OV_PROFILED_ROUND's engine and queries
     final_timed = timed(OverlapCommand._final_checks_arrays, "final", spent,
                         dev)
 
@@ -1428,6 +1552,8 @@ def phase_overlap(dev):
         finally:
             cuda_chain._launch = launch
         eng = out[0]
+        if r == OV_PROFILED_ROUND:
+            kept.update(eng=eng, queries=queries)
         per_round.append((eng.C, eng.H, eng.nt, sum(resident_bytes(
             eng, ("membership", "t_seeds", "t_pos", "usable_dev")).values())))
         return out
@@ -1457,7 +1583,7 @@ def phase_overlap(dev):
         out_path = os.path.join(d, "overlap.paf")
         torch.cuda.reset_peak_memory_stats()
         cuda_chain.chain_scan.launches = 0
-        with patched(subs), ranged(OV_RANGES):
+        with patched(subs), ranged(OV_RANGES), counted_reruns() as reruns:
             t0 = time.perf_counter()
             with open(out_path, "w", buffering=1 << 22) as out, \
                     contextlib.redirect_stdout(out), \
@@ -1479,7 +1605,8 @@ def phase_overlap(dev):
         f"round 1's prep, waits for the worker's prep); round prep "
         f"{spent['prep']:.3f} s in all, on the worker thread after round "
         f"1, beside the find and checks; {len(per_round)} rounds; "
-        f"chain_scan launches {launches}; peak device memory "
+        f"chain_scan launches {launches}; re-runs at collect "
+        f"{reruns['reruns']}; peak device memory "
         f"{torch.cuda.max_memory_allocated()} bytes; {n_paf} PAF lines, "
         f"sha256 {hashlib.sha256(paf).hexdigest()}")
     for r, (C, H, nt, nb) in enumerate(per_round, 1):
@@ -1502,7 +1629,26 @@ def phase_overlap(dev):
                          f"{OV_PAF_LINES}")
     if launches <= 0 or not calls:
         raise SystemExit("the overlap path launched no chain_scan kernel")
+    overlap_dispatch_case(kept["eng"], kept["queries"])
     return launches, errs["chain_scan"]
+
+
+def overlap_dispatch_case(eng, queries):
+    """``phase_dispatch`` of one overlap sub-batch: the first 2048 queries
+    of round OV_PROFILED_ROUND against that round's engine, as the
+    overlapper dispatches them (its job plan's budget)."""
+    from downpore_tpu_torch.overlap.overlapper import SUB
+    sq = [q.query for q in queries[:SUB]]
+    base_min = np.array([int(0.25 * q.num_seeds + 0.5) for q in sq],
+                        np.int32)
+    plan = {}
+    return phase_dispatch(
+        f"overlap round {OV_PROFILED_ROUND}, one sub-batch of {len(sq)} "
+        f"queries",
+        lambda b: eng.dispatch_chains(sq, base_min, pair_budget=b or 0,
+                                      shape_plan=plan),
+        eng.collect_chains_raw,
+        lambda f: max(int(p.host.wait()[0][0]) for p in f[1]))
 
 
 TRIM_READS = 65_536
@@ -1644,11 +1790,15 @@ def phase_trim(dev):
     subs += [(owner, n, timed(getattr(owner, n), key, spent, dev))
              for owner, n, key in (
                  (Trimmer, "determine_adapters", "determine"),
-                 (Trimmer, "_dispatch_edge_batch", "edges"),
                  (Trimmer, "_finish_edge_batch", "edges"),
-                 (_MidStream, "add_batch", "mid_add"),
                  (_MidStream, "finish", "mid_finish"),
                  (SequenceSet, "write", "write"))]
+    # the dispatches, timed without a wait: their work overlaps the
+    # caller's next steps, as in the command
+    subs += [(owner, n, timed(getattr(owner, n), key, spent, dev, False))
+             for owner, n, key in (
+                 (Trimmer, "_dispatch_edge_batch", "edges"),
+                 (_MidStream, "add_batch", "mid_add"))]
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "reads.fastq")
         t0 = time.perf_counter()
@@ -1658,7 +1808,7 @@ def phase_trim(dev):
             f"of fastq, written in {time.perf_counter() - t0:.1f} s")
         out_path = os.path.join(d, "trimmed.fastq")
         torch.cuda.reset_peak_memory_stats()
-        with patched(subs):
+        with patched(subs), counted_reruns() as reruns:
             cuda_chain.chain_scan.launches = 0
             t0 = time.perf_counter()
             err = run_trim(path, dev.type, out_path)
@@ -1678,7 +1828,8 @@ def phase_trim(dev):
             f"the rest {rest:.3f} s (parsing, edge cuts, stream feed); "
             f"middle-window packing and dispatch on the worker thread "
             f"{spent['mid_add']:.3f} s, beside the edge pass; chain launches "
-            f"{launches}, by stage {dict(per_stage)}; peak device memory {peak} bytes; "
+            f"{launches}, by stage {dict(per_stage)}; re-runs at collect "
+            f"{reruns['reruns']}; peak device memory {peak} bytes; "
             f"{out_bytes} bytes out; split {split} of {planted} chimeras")
         log("trim stderr: " + " | ".join(
             ln for ln in err.splitlines() if not ln.startswith(
@@ -1742,6 +1893,46 @@ def profile_trim(path: str, dev, out_path=PROFILE_TRIM_OUT):
                 for e in top[:8] if _device_us(e) > 0))
             report_ranges(prof, TRIM_RANGES,
                           out_path.replace(".txt", f"_{name.split()[0]}.txt"))
+    trim_dispatch_cases(t, batch, stream)
+
+
+def trim_dispatch_cases(t, batch, stream):
+    """``phase_dispatch`` of one edge batch (both sides' verdicts of the
+    batch's reads, at the trimmer's budget of 16,384 pairs) and of one
+    middle batch (the windows of 2730 reads, at max(4096, windows / 4)
+    pairs and 4096 detections)."""
+    from downpore_tpu_torch.trim.trimmer import EDGE_SIZE
+    eng = t._engine()
+    W = t.WINDOW - t.k + 1
+    usable = [s for s in batch if len(s) >= EDGE_SIZE + 50]
+    sides = [([s.subsequence(0, EDGE_SIZE) for s in usable], True,
+              *t._edge_mins(t.front_sets), len(t.front_adapters)),
+             ([s.subsequence(len(s) - EDGE_SIZE, len(s)) for s in usable],
+              False, *t._edge_mins(t.back_sets), len(t.back_adapters))]
+    phase_dispatch(
+        f"trim edge batch ({len(usable)} reads, both sides)",
+        lambda b: [eng.edge_verdict_dispatch(w, front, gm, cm, W,
+                                             pair_budget=b or 16384)
+                   for w, front, gm, cm, _ in sides],
+        lambda f: [eng.edge_verdict_collect(fs, n)
+                   for fs, (*_, n) in zip(f, sides)],
+        lambda f: max(int(p.host.wait()[2][0]) for fs in f
+                      for _, blocks in fs for p in blocks))
+    stream.add_batch(batch[:2730])
+    n = stream.count
+    rows, lens = stream.rows[:n].copy(), stream.lens[:n].copy()
+    stream.metas, stream.count = [], 0
+
+    def mid(b):
+        keep = []
+        up = eng.upload_rows(rows, lens, n, keep)
+        return eng.window_verdict_dispatch_packed(
+            [up + (0,)], stream.min_matches, stream.min_matches,
+            t.mid_threshold, stream.W, pair_budget=b or max(4096, n // 4),
+            keep=keep)
+    phase_dispatch(f"trim middle batch ({n} windows)", mid,
+                   eng.window_verdict_collect,
+                   lambda f: max(int(p.host.wait()[0][-1, 0]) for p in f))
 
 
 def _device_us(evt) -> float:
@@ -1941,11 +2132,12 @@ def phase_grid(mapper, reads, dev):
     eng.routes.clear()
     cuda_chain.chain_scan.launches = 0
     walls = []
-    for _ in range(TIMED_PASSES):
-        t0 = time.perf_counter()
-        results = gm.map_batch(reads)
-        sync(dev)
-        walls.append(time.perf_counter() - t0)
+    with counted_reruns() as reruns:
+        for _ in range(TIMED_PASSES):
+            t0 = time.perf_counter()
+            results = gm.map_batch(reads)
+            sync(dev)
+            walls.append(time.perf_counter() - t0)
     map_launches = cuda_chain.chain_scan.launches
     got = [gm.as_string(m) for ms in results for m in ms]
     warm_paf = [gm.as_string(m) for ms in warm for m in ms]
@@ -1955,13 +2147,15 @@ def phase_grid(mapper, reads, dev):
     log(f"grid map_batch (2 x 2 on the card), {TIMED_PASSES} passes: wall "
         f"{', '.join(f'{w:.4f}' for w in walls)} s; median {wall:.4f} s = "
         f"{bases / wall:.0f} bases/s; chain_scan launches {map_launches}; "
-        f"routes {dict(eng.routes)}; {len(got)} PAF lines, equal to the "
+        f"routes {dict(eng.routes)}; re-runs at collect "
+        f"{reruns['reruns']}; {len(got)} PAF lines, equal to the "
         f"unsharded mapper's: {same}")
     if map_launches <= 0:
         raise SystemExit("the grid map launched no chain_scan kernel")
     if not same or not got:
         raise SystemExit("the 2 x 2 grid's PAF differs from the unsharded "
                          "mapper's")
+    map_dispatch_case("map 4.6 Mb on the 2 x 2 grid (one card)", gm, reads)
     del gm, eng, warm, results
 
     with tempfile.TemporaryDirectory() as d:
@@ -2395,6 +2589,7 @@ def main() -> int:
         phase_beam(dev)
     mapper, reads, map_launches = phase_slice(dev)
     phase_profile(mapper, reads)
+    map_dispatch_case("map 4.6 Mb", mapper, reads)
     phase_card_vs_cpu(mapper, reads)
     grid_launches, grid_err = phase_grid(mapper, reads, dev)
     del mapper, reads
@@ -2414,6 +2609,15 @@ def main() -> int:
     if jax_pkg:
         raise SystemExit(f"the port loaded the JAX package: {jax_pkg}")
     log("after every phase: no jax and no downpore_tpu module loaded")
+    log("phase_dispatch, every case (dispatch under set_sync_debug_mode("
+        "'error'); host ms / device span ms / device busy ms at the path's "
+        "budget / padding ms / re-runs): " + "; ".join(
+            f"{r['name']} {r['dispatch_ms']:.3f} / {r['device_span_ms']:.3f}"
+            f" / {r['device_busy_ms']:.3f} / {r['padding_ms']:.3f} / "
+            f"{r['reruns']}" for r in DISPATCH_ROWS))
+    if len(DISPATCH_ROWS) != len(DISPATCH_CASES):
+        raise SystemExit(f"phase_dispatch measured {len(DISPATCH_ROWS)} "
+                         f"cases, not {len(DISPATCH_CASES)}")
     # update_bands runs on no path: in the JAX package the Pallas band
     # kernel is test-only, and its step is the beam kernel's inner loop
     from downpore_tpu_torch.ops import cuda_chain

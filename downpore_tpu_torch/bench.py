@@ -402,9 +402,12 @@ def bench_overlap(dev, label):
     k = 10
     values = score_seed_values(kmer_occurrences(reads, k), k)
 
+    shape_plan = {}
+
     def prep_round(first):
         """One round's host half (the CLI's prep_round)."""
-        ov = Overlapper(SeedIndex(k), 10000, 1000, 15, 0.25)
+        ov = Overlapper(SeedIndex(k), 10000, 1000, 15, 0.25,
+                        shape_plan=shape_plan)
         queries = ov.prepare_round(15, 100000, values,
                                    iter(reads[first:]), QUERY_EDGES,
                                    iter(reads))

@@ -91,6 +91,7 @@ class OverlapCommand(Command):
             round_no = int(progress.get("round", 0))
             print(f"Resuming from round {round_no} "
                   f"(sequence {first_sequence}).", file=sys.stderr)
+        shape_plan = {}  # one plan for the whole job: the pair budget
 
         def prep_round(first):
             """Host half of a round: fresh index, query prep, chunk
@@ -98,7 +99,7 @@ class OverlapCommand(Command):
             index = SeedIndex(k)
             overlapper = Overlapper(index, chunk_size, overlap_size,
                                     num_seeds, hit_fraction, mesh=mesh,
-                                    device=device)
+                                    device=device, shape_plan=shape_plan)
             seqs = seq_set.get_n_sequences_from(first, query_batch_size)
             queries = overlapper.prepare_round(
                 num_seeds, seed_batch_size, values, seqs, QUERY_EDGES,

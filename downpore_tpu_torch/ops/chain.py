@@ -127,6 +127,26 @@ def make_anchors_topk(qseeds, qpos, tseeds, tpos, per_seed: int = 2):
             "overflow": overflow.to(torch.int32)}
 
 
+def anchors_of_slots(live, build):
+    """Anchors (``make_anchors_topk``'s layout) of an engine's pair-budget
+    slots: ``build(rows)`` makes those of the slots ``rows`` (None: every
+    slot).  A dead slot (``live`` False) has no query seed, so its anchors
+    are empty (``qi`` -1, the rest 0, invalid).  On a card every slot is
+    built: finding the live ones would wait for the device.  On the CPU,
+    where that read waits for nothing, only the live ones are, and the
+    dead ones get the empty anchors."""
+    if live.device.type != "cpu" or bool(live.all()):
+        return build(None)
+    rows = live.nonzero().flatten()
+    out = {}
+    for key, v in build(rows).items():
+        full = torch.full((live.shape[0],) + tuple(v.shape[1:]),
+                          -1 if key == "qi" else 0, dtype=v.dtype)
+        full[rows] = v
+        out[key] = full
+    return out
+
+
 def dp_from_anchors(anchors, k: int, variant: str = "extend"):
     """Forward + backward chain DP over a prepared anchor batch: one
     ``chain_scan_fb`` launch, whose backward warps read each row reversed
@@ -215,12 +235,22 @@ def summarize_dp(out, min_match, alen, k: int, top_k: int = 4,
     return torch.cat([c.to(torch.int32) for c in cols], dim=1)
 
 
-def compact_indices(mask_flat):
-    """Ascending int64 indices of the set entries of ``mask_flat`` and
-    their count: ``downpore_tpu.ops.chain.compact_indices`` without its
-    fixed output size (every set index is returned)."""
-    idx = torch.nonzero(mask_flat).flatten()
-    return idx, idx.numel()
+def compact_indices(mask_flat, size: int):
+    """First ``size`` indices of the set entries of ``mask_flat``,
+    ascending (``torch.nonzero``'s order), padded with ``len(mask_flat)``
+    past the count, and the total count as a 0-d int32 tensor on the
+    mask's device: ``downpore_tpu.ops.chain.compact_indices``.  Nothing is
+    read back to the host.  Slot j holds the first index whose running
+    count of set entries reaches j + 1: a binary search over the int32
+    inclusive prefix sum, which is ``len(mask_flat)`` once j passes the
+    count."""
+    rank = torch.cumsum(mask_flat.to(torch.int32), 0, dtype=torch.int32)
+    want = torch.arange(1, size + 1, dtype=torch.int32,
+                        device=mask_flat.device)
+    sel = torch.searchsorted(rank, want)
+    n = rank[-1] if rank.numel() else torch.zeros(
+        (), dtype=torch.int32, device=mask_flat.device)
+    return sel, n
 
 
 SUMMARY_SCALARS = ["best", "ident_cov_q", "earliest", "latest", "n_chains"]

@@ -100,7 +100,9 @@ def window_ok_linear(qp_p, tp_p, qp_t, tp_t, k: int,
 def _forward_plain(qi, tj, qp, tp, valid, k: int, variant: str):
     """Plain torch forward scan on any device: the recurrence of
     ``_chain_scan`` step by step, vectorised over the ``P`` pairs.  Step t
-    reads only the already-final prefix ``[:, :t]`` of the state."""
+    reads only the already-final prefix ``[:, :t]`` of the state.  A row
+    without a valid anchor (an engine's unused budget slot) keeps the
+    state it starts in, so the scan runs over the other rows only."""
     P, A = qi.shape
     dev = qi.device
     i32 = torch.int32
@@ -110,6 +112,14 @@ def _forward_plain(qi, tj, qp, tp, valid, k: int, variant: str):
     s_qp = torch.zeros_like(score)
     s_tp = torch.zeros_like(score)
     bp = torch.full((P, A), -1, dtype=i32, device=dev)
+    live = (valid != 0).any(dim=1)
+    if P and not bool(live.all()):
+        rows = live.nonzero().flatten()
+        out = (score, cov_q, cov_t, s_qp, s_tp, bp)
+        for o, sub in zip(out, _forward_plain(
+                *(a[rows] for a in (qi, tj, qp, tp, valid)), k, variant)):
+            o[rows] = sub
+        return out
     vb = valid != 0
     rows = torch.arange(P, device=dev)
     for t in range(A):

@@ -11,51 +11,62 @@ Resident state on the engine's device:
 * binned mode only: ``bin_mem1 [H1, NB]`` / ``bin_mem2 [H, NB] int8`` —
   seed-bucket -> genome-bin matrices of the two-level gate.
 
-Per batch of query windows, one ``dispatch_packed`` call runs retrieval
-counts and the distinct-seed gate (int8 membership rows gathered and
-summed), selects every passing (query, chunk) pair with ``torch.nonzero``,
-builds anchors against the resident chunk tables, runs the chain DP
-(``cuda_chain.chain_scan_fb``, forward and backward) and packs the lean
-top-4 summaries.  ``collect_arrays_many`` brings the rows to the host for
-the mapper's candidate walk.
+Per batch of query windows, one ``dispatch_packed`` call enqueues
+retrieval counts and the distinct-seed gate (int8 membership rows
+gathered and summed), compacts the passing (query, chunk) pairs to a
+fixed pair budget (``compact_indices``: query-major, chunk-ascending,
+dead slots after them), builds anchors against the resident chunk tables,
+runs the chain DP (``cuda_chain.chain_scan_fb``, forward and backward) and
+packs the lean top-4 summaries, and returns without reading anything
+back; the host copy of the rows and of the passing count starts behind
+the work (``transfer.HostCopy``).  ``collect_arrays_many`` waits for it;
+a block whose count exceeded its budget is re-run there with the budget
+grown 4x, as the JAX collect does, so the output never depends on the
+budget.  The budgets start as the JAX engine's (``map_budget``,
+``overlap_budget``); a map dispatch of a route and size already
+collected runs at a quarter over that count when smaller
+(``_map_budget``), and overlap dispatches at the job plan's
+(``query_chains``).
 
 At ``_BINNED_MIN_C`` chunks or more a ``binned=True`` engine takes the
 two-level gate instead (``_binned_gate``): chunks are permuted into
 genome-position order and cut into bins of ``_BINNED_CB``; level 1 gates
 bins on ``bin_mem``, level 2 counts chunks only inside each query row's
-top-``BB`` passing bins.  The JAX engine re-dispatches with ``BB`` doubled
-until it covers ``n_bin`` (the most passing bins of any row); the port
-reads ``n_bin`` once and runs level 2 at the width that ladder ends on
-(``_bb_final``).  Collected chunk ids are translated back to the index's
-order.
+top-``BB`` passing bins.  The dispatch runs at the JAX engine's starting
+``BB`` and returns ``n_bin`` (the most passing bins of any row) as a
+device scalar; when it exceeds ``BB``, collect re-runs level 2 at the
+width the JAX engine's doubling ends on (``_bb_final``).  Collected chunk
+ids are translated back to the index's order.
 
 The overlapper's half: ``dispatch_chains`` runs the same retrieval and
 gate on seed-sequence queries, the forward-only aligner-variant chain DP
 (``chain.dp_forward_lean``) and a walk of each passing pair's best chain
-back through its backpointers (``_overlap_from_counts``);
-``collect_chains`` turns the kept rows into per-query candidate lists.
+back through its backpointers (``_overlap_from_counts``), with the kept
+rows compacted to the front; ``collect_chains`` reads the counts, slices
+the rows to the kept ones and the real chain length on the device,
+fetches them and turns them into per-query candidate lists.
 
-Dropped from the JAX engine because no output depends on them: the
-fixed pair budget and its 4x escalation (``nonzero`` yields every passing
-pair, which is what the escalated run converges to), batch-size buckets,
-the shape plan that pins compiled shapes across overlap rounds, the
-speculative chain prefetch, combined int16 uploads, async host copies and
-clipped gathers.
+Dropped from the JAX engine because no output depends on them:
+batch-size buckets, the compiled-shape half of the overlap shape plan
+(only its pair budget is kept), the speculative chain prefetch, combined
+int16 uploads and clipped gathers.
 
 With a device grid (``parallel.make_mesh``) every batch splits into the
 grid's data shards (contiguous, equal row blocks, the tail padded with
-rows that never pass the gate), each dispatched on its shard's device
-against a replica of the chunk tables; the collect offsets each block's
-query rows by its first row and concatenates the blocks in order, so the
-walk order is unchanged.  A grid with a ``seed`` axis above 1 shards the
-membership's hash-bucket rows instead (``seed_sharded``): each (data,
-seed) device holds ``HP / n_seed`` rows, the partial counts of the seed
-shards are summed on the data shard's device (``sharded_counts``), and the
-binned gate and the on-device bucket derivation are off, as in the JAX
-engine.
+rows that never pass the gate), each enqueued on its shard's device
+against a replica of the chunk tables without waiting, so the blocks of
+one dispatch run at the same time on distinct cards; the collect makes
+each block exact, offsets its query rows by its first row and
+concatenates the blocks in order, so the walk order is unchanged.  A grid
+with a ``seed`` axis above 1 shards the membership's hash-bucket rows
+instead (``seed_sharded``): each (data, seed) device holds ``HP /
+n_seed`` rows, the partial counts of the seed shards are summed on the
+data shard's device (``sharded_counts``), and the binned gate and the
+on-device bucket derivation are off, as in the JAX engine.
 """
 from __future__ import annotations
 
+import functools
 from collections import Counter
 from typing import List
 
@@ -65,8 +76,9 @@ import torch
 from .. import resolve_device
 from ..parallel.mesh import DeviceGrid
 from . import match as match_ops
-from .chain import make_anchors_topk, dp_from_anchors, dp_forward_lean, \
-    summarize_dp, compact_indices
+from .chain import anchors_of_slots, make_anchors_topk, dp_from_anchors, \
+    dp_forward_lean, summarize_dp, compact_indices
+from .transfer import HostCopy, Pending, on_device
 
 # binned-retrieval engagement threshold and bin width, the JAX engine's
 # (module-level and read at construction, so tests can patch them to toy
@@ -76,8 +88,15 @@ _BINNED_CB = 128
 
 # bound on the [m, R, C] int8 block one retrieval gather materializes
 _GATHER_ELEMS = 1 << 28
-# pairs per anchor-build step: bounds the [CH, NQ, NT] equality tensor
-_ANCHOR_CHUNK = 1024
+
+
+def _anchor_chunk(nq: int, nt: int) -> int:
+    """Pairs per anchor-build step: the ``[CH, nq, nt]`` equality tensor
+    stays near 512 MB, and the steps few: each is ~30 kernels, and a
+    dispatch whose kernels overrun the card's launch queue waits for the
+    device.  (The JAX engine's steps, 1024 pairs, only bound its
+    memory.)"""
+    return max(128, min(8192, (1 << 29) // max(1, nq * nt)))
 
 
 def _row_chunks(M: int, R: int, C: int):
@@ -133,15 +152,18 @@ def sharded_counts(mem_blocks, buckets, device):
     blocks in order, one per seed shard and on its device; each counts the
     query buckets that fall in its row range (``rel = b - lo``, live when
     ``0 <= rel < H_loc``), and the int32 partial counts are summed on
-    ``device``."""
+    ``device``.  The copies between cards do not wait on the host: each
+    seed shard's count is enqueued on its own card."""
     total = None
     lo = 0
     for m_local in mem_blocks:
         H_loc = m_local.shape[0]
-        b = buckets.to(m_local.device)
-        rel = b - lo
-        live = (b >= 0) & (rel >= 0) & (rel < H_loc)
-        part = _count_rows(m_local, torch.where(live, rel, -1)).to(device)
+        with on_device(m_local.device):
+            b = buckets.to(m_local.device, non_blocking=True)
+            rel = b - lo
+            live = (b >= 0) & (rel >= 0) & (rel < H_loc)
+            part = _count_rows(m_local, torch.where(live, rel, -1))
+        part = part.to(device, non_blocking=True)
         total = part if total is None else total + part
         lo += H_loc
     return total
@@ -204,37 +226,52 @@ def _derive_buckets(q_seeds, usable, H: int, hashed: bool):
     return rb, db
 
 
-def _build_anchors(mi, ci, q_seeds, q_pos, t_seeds, t_pos,
-                   chunk: int = _ANCHOR_CHUNK):
+def _build_anchors(mi, ci, live, q_seeds, q_pos, t_seeds, t_pos):
     """Anchors (``make_anchors_topk``, 2 target occurrences per query
-    seed) of the selected (query row, chunk) pairs, built ``chunk`` pairs
-    at a time to bound the ``[chunk, nq, nt]`` equality tensor."""
-    parts = []
-    for lo in range(0, mi.shape[0], chunk):
-        m_c = mi[lo:lo + chunk]
-        c_c = ci[lo:lo + chunk]
-        parts.append(make_anchors_topk(q_seeds[m_c], q_pos[m_c],
-                                       t_seeds[c_c], t_pos[c_c],
-                                       per_seed=2))
-    return {key: torch.cat([p[key] for p in parts]) for key in parts[0]}
+    seed) of the selected (query row, chunk) pairs, built
+    ``_anchor_chunk`` pairs at a time to bound the ``[chunk, nq, nt]``
+    equality tensor.  A budget slot past the passing count (``live``
+    False) points at row 0 and gets no query seed, so it has no valid
+    anchor and its chain is empty."""
+    chunk = _anchor_chunk(q_seeds.shape[1], t_seeds.shape[1])
+
+    def build(rows):
+        m, c, on = (mi, ci, live) if rows is None \
+            else (mi[rows], ci[rows], live[rows])
+        parts = []
+        for lo in range(0, max(1, m.shape[0]), chunk):
+            m_c, c_c = m[lo:lo + chunk], c[lo:lo + chunk]
+            qs = torch.where(on[lo:lo + chunk, None], q_seeds[m_c], -1)
+            parts.append(make_anchors_topk(qs, q_pos[m_c], t_seeds[c_c],
+                                           t_pos[c_c], per_seed=2))
+        return {key: torch.cat([p[key] for p in parts]) for key in parts[0]}
+    return anchors_of_slots(live, build)
 
 
-def _chain_pack_tail(mi, ci, dc, q_seeds, q_pos, base_min, q_len, t_seeds,
-                     t_pos, *, k: int, top_k: int, lean: bool):
-    """Chain DP + summary packing over the selected (query, chunk) pairs:
-    the shared tail of the flat and binned gates.  Returns ``(head [N, 3]
-    int32 (query row, chunk, distinct count), packed [N, W] int16)``."""
-    if mi.numel() == 0:
-        W = (1 + 7 * top_k) if lean else (5 + 8 * top_k)
-        dev = q_seeds.device
-        return (torch.empty((0, 3), dtype=torch.int32, device=dev),
-                torch.empty((0, W), dtype=torch.int16, device=dev))
-    anchors = _build_anchors(mi, ci, q_seeds, q_pos, t_seeds, t_pos)
+def _budget_slots(sel, N: int, C: int):
+    """Budget slots of a compacted ``[M, C]`` gate (``compact_indices``
+    of its flattening, padded with ``N = M * C``): ``(live, row, column)``,
+    dead slots at row and column 0."""
+    live = sel < N
+    cl = sel.clamp(max=max(0, N - 1))
+    return (live, torch.where(live, torch.div(cl, C, rounding_mode="floor"),
+                              0),
+            torch.where(live, cl % C, 0))
+
+
+def _chain_pack_tail(mi, ci, dc, live, q_seeds, q_pos, base_min, q_len,
+                     t_seeds, t_pos, *, k: int, top_k: int, lean: bool):
+    """Chain DP + summary packing over the pair budget's slots: the shared
+    tail of the flat and binned gates.  Returns ``(head [B, 3] int32
+    (query row, chunk, distinct count), packed [B, W] int16)``; a dead
+    slot has query row -1 (collect drops it), min-match ``1 << 20`` and
+    no anchor."""
+    mm = torch.where(live, base_min[mi], 1 << 20)
+    anchors = _build_anchors(mi, ci, live, q_seeds, q_pos, t_seeds, t_pos)
     out = dp_from_anchors(anchors, k)
-    packed = summarize_dp(out, base_min[mi], q_len[mi], k, top_k,
-                          lean=lean)
-    head = torch.stack([mi.to(torch.int32), ci.to(torch.int32),
-                        dc.to(torch.int32)], dim=1)
+    packed = summarize_dp(out, mm, q_len[mi], k, top_k, lean=lean)
+    head = torch.stack([torch.where(live, mi, -1).to(torch.int32),
+                        ci.to(torch.int32), dc.to(torch.int32)], dim=1)
     # summaries fit int16 for <= 10 kb chunks; the JAX engine clamps the
     # fetched rows to int16, and empty-row sentinels clamp with them
     packed16 = packed.clamp(-32768, 32767).to(torch.int16)
@@ -242,37 +279,41 @@ def _chain_pack_tail(mi, ci, dc, q_seeds, q_pos, base_min, q_len, t_seeds,
 
 
 def _map_from_counts(counts, dcounts, q_seeds, q_pos, min_count, base_min,
-                     q_len, t_seeds, t_pos, *, k: int, top_k: int = 4,
-                     lean: bool = False):
-    """Gate + chain + summary from retrieval counts.  Passing pairs come
-    out query-major, chunk-ascending: the order the reference walks
-    candidates."""
-    C = counts.shape[1]
+                     q_len, t_seeds, t_pos, *, k: int, pair_budget: int,
+                     top_k: int = 4, lean: bool = False):
+    """Gate + chain + summary from retrieval counts, over the first
+    ``pair_budget`` passing pairs.  Passing pairs come out query-major,
+    chunk-ascending (the order the reference walks candidates), dead
+    slots after them.  Returns ``(head, packed16, n_ok)``, ``n_ok`` the
+    passing count as a 0-d device tensor (collect re-runs above the
+    budget)."""
+    M, C = counts.shape
     ok = (counts >= min_count[:, None]) & (dcounts >= base_min[:, None]) \
         & (min_count[:, None] > 0)
-    sel, _ = compact_indices(ok.reshape(-1))
-    mi = torch.div(sel, C, rounding_mode="floor")
-    ci = sel % C
+    # no more pairs can pass than the gate has
+    sel, n_ok = compact_indices(ok.reshape(-1), min(pair_budget, M * C))
+    live, mi, ci = _budget_slots(sel, M * C, C)
     dc = dcounts[mi, ci]
-    return _chain_pack_tail(mi, ci, dc, q_seeds, q_pos, base_min, q_len,
-                            t_seeds, t_pos, k=k, top_k=top_k, lean=lean)
+    return _chain_pack_tail(mi, ci, dc, live, q_seeds, q_pos, base_min,
+                            q_len, t_seeds, t_pos, k=k, top_k=top_k,
+                            lean=lean) + (n_ok,)
 
 
 def _fused_map_c(q_pos, q_rb, q_db, min_count, base_min, q_len, q_seeds,
-                 membership, t_seeds, t_pos, *, k: int, top_k: int = 4,
-                 lean: bool = False):
+                 membership, t_seeds, t_pos, *, k: int, pair_budget: int,
+                 top_k: int = 4, lean: bool = False):
     """Retrieval + gate + chain + summary with the run/distinct bucket
     arrays shipped from the host (rows whose seeds overflow ``nq``)."""
     counts = _count_rows(membership, q_rb)
     dcounts = _count_rows(membership, q_db)
     return _map_from_counts(counts, dcounts, q_seeds, q_pos, min_count,
                             base_min, q_len, t_seeds, t_pos, k=k,
-                            top_k=top_k, lean=lean)
+                            pair_budget=pair_budget, top_k=top_k, lean=lean)
 
 
 def _fused_map_d(q_pos, min_count, base_min, q_len, q_seeds, usable,
-                 membership, t_seeds, t_pos, *, k: int, top_k: int = 4,
-                 hashed: bool = False, lean: bool = False):
+                 membership, t_seeds, t_pos, *, k: int, pair_budget: int,
+                 top_k: int = 4, hashed: bool = False, lean: bool = False):
     """``_fused_map_c`` with the run/distinct buckets derived on the
     device from the seed ids (``_derive_buckets``): the standard map
     path."""
@@ -281,7 +322,7 @@ def _fused_map_d(q_pos, min_count, base_min, q_len, q_seeds, usable,
     counts, dcounts = _count_rows_pair(membership, q_rb, q_db)
     return _map_from_counts(counts, dcounts, q_seeds, q_pos, min_count,
                             base_min, q_len, t_seeds, t_pos, k=k,
-                            top_k=top_k, lean=lean)
+                            pair_budget=pair_budget, top_k=top_k, lean=lean)
 
 
 def _derive_bin_mem(membership, NB: int, CB: int):
@@ -346,17 +387,21 @@ def _bb_final(n_bin: int, BB: int, NB: int) -> int:
 
 def _binned_gate(membership, bin_mem, q_rb, q_db, rb1, db1, min_count,
                  base_min, *, NB: int, CB: int, BB: int, C: int,
-                 aligned_db: bool):
+                 pair_budget: int, aligned_db: bool):
     """Two-level retrieval gate: level 1 gates genome bins on ``bin_mem``
     with the buckets ``rb1``/``db1`` of its hash space, level 2 counts
-    chunks only inside each row's top passing bins.  ``aligned_db`` says
-    ``q_db``/``db1`` share the run arrays' slot layout (the
+    chunks only inside each row's top-``BB`` passing bins.  ``aligned_db``
+    says ``q_db``/``db1`` share the run arrays' slot layout (the
     ``_derive_buckets`` form), so one gather serves both counts.
 
-    Returns ``(mi, ci, dc, n_bin, BB)``: the passing (query row, engine
-    chunk, distinct count) triples in (row, bin rank, lane) order, the most
-    passing bins of any row, and the selection width used (``_bb_final``
-    of the starting ``BB``: every passing bin is selected)."""
+    Returns ``(mi, ci, dc, live, n_ok, n_bin)``: the budget's slots of
+    passing (query row, engine chunk, distinct count) triples in (row, bin
+    rank, lane) order, dead slots after them, the passing count, and the
+    most passing bins of any row (0-d device tensors).  With ``n_bin >
+    BB`` the selection may have dropped chunks: collect re-runs at
+    ``_bb_final(n_bin, BB, NB)``, the width the JAX engine's doubling
+    ends on."""
+    M = q_rb.shape[0]
     H = membership.shape[0]
     dev = membership.device
     if aligned_db:
@@ -366,8 +411,7 @@ def _binned_gate(membership, bin_mem, q_rb, q_db, rb1, db1, min_count,
         d1 = _count_rows(bin_mem, db1)
     okb = (c1 >= min_count[:, None]) & (d1 >= base_min[:, None]) \
         & (min_count[:, None] > 0)
-    n_bin = int(okb.sum(dim=1).max())
-    BB = _bb_final(n_bin, BB, NB)
+    n_bin = okb.sum(dim=1, dtype=torch.int32).amax()
     # top-BB bins by run count, ties to the lower bin (jax.lax.top_k's
     # order): a stable descending sort, not torch.topk
     key = torch.where(okb, c1, -1)
@@ -386,24 +430,24 @@ def _binned_gate(membership, bin_mem, q_rb, q_db, rb1, db1, min_count,
         & (d2 >= base_min[:, None, None]) \
         & (min_count[:, None, None] > 0) \
         & sel_live[:, :, None] & (ci_all < C)
-    sel, _ = compact_indices(okf.reshape(-1))
-    mi = torch.div(sel, BB * CB, rounding_mode="floor")
-    rem = sel % (BB * CB)
+    sel, n_ok = compact_indices(okf.reshape(-1),
+                                min(pair_budget, M * BB * CB))
+    live, mi, rem = _budget_slots(sel, M * BB * CB, BB * CB)
     s_idx = torch.div(rem, CB, rounding_mode="floor")
     w = rem % CB
-    ci = topbin[mi, s_idx] * CB + w
+    ci = torch.where(live, topbin[mi, s_idx] * CB + w, 0)
     dc = d2[mi, s_idx, w]
-    return mi, ci, dc, n_bin, BB
+    return mi, ci, dc, live, n_ok, n_bin
 
 
 def _fused_map_bd(q_pos, min_count, base_min, q_len, q_seeds, usable,
                   membership, bin_mem, t_seeds, t_pos, *, k: int,
-                  top_k: int = 4, hashed: bool = False,
+                  pair_budget: int, top_k: int = 4, hashed: bool = False,
                   hashed1: bool = False, lean: bool = False, NB: int,
                   CB: int, BB: int, C: int):
     """``_fused_map_d`` with the two-level binned gate: buckets derived on
     the device, in the bin matrix's hash space too when it differs.
-    Returns ``((head, packed16), n_bin, BB)``."""
+    Returns ``(head, packed16, n_ok, n_bin)``."""
     H = membership.shape[0]
     H1 = bin_mem.shape[0]
     q_rb, q_db = _derive_buckets(q_seeds, usable, H, hashed)
@@ -411,95 +455,114 @@ def _fused_map_bd(q_pos, min_count, base_min, q_len, q_seeds, usable,
         rb1, db1 = q_rb, q_db
     else:
         rb1, db1 = _derive_buckets(q_seeds, usable, H1, hashed1)
-    mi, ci, dc, n_bin, BB = _binned_gate(
+    mi, ci, dc, live, n_ok, n_bin = _binned_gate(
         membership, bin_mem, q_rb, q_db, rb1, db1, min_count, base_min,
-        NB=NB, CB=CB, BB=BB, C=C, aligned_db=True)
-    return (_chain_pack_tail(mi, ci, dc, q_seeds, q_pos, base_min, q_len,
-                             t_seeds, t_pos, k=k, top_k=top_k, lean=lean),
-            n_bin, BB)
+        NB=NB, CB=CB, BB=BB, C=C, pair_budget=pair_budget, aligned_db=True)
+    return _chain_pack_tail(mi, ci, dc, live, q_seeds, q_pos, base_min,
+                            q_len, t_seeds, t_pos, k=k, top_k=top_k,
+                            lean=lean) + (n_ok, n_bin)
 
 
 def _fused_map_bc(q_pos, q_rb, q_db, min_count, base_min, q_len, q_seeds,
                   membership, bin_mem, t_seeds, t_pos, *, k: int,
-                  top_k: int = 4, lean: bool = False, NB: int, CB: int,
-                  BB: int, C: int):
+                  pair_budget: int, top_k: int = 4, lean: bool = False,
+                  NB: int, CB: int, BB: int, C: int):
     """``_fused_map_c`` (buckets shipped from the host) with the two-level
     binned gate.  The shipped buckets live in the membership's hash space,
-    so level 1 uses the H-space bin matrix.  Returns ``((head,
-    packed16), n_bin, BB)``."""
-    mi, ci, dc, n_bin, BB = _binned_gate(
+    so level 1 uses the H-space bin matrix.  Returns ``(head, packed16,
+    n_ok, n_bin)``."""
+    mi, ci, dc, live, n_ok, n_bin = _binned_gate(
         membership, bin_mem, q_rb, q_db, q_rb, q_db, min_count, base_min,
-        NB=NB, CB=CB, BB=BB, C=C, aligned_db=False)
-    return (_chain_pack_tail(mi, ci, dc, q_seeds, q_pos, base_min, q_len,
-                             t_seeds, t_pos, k=k, top_k=top_k, lean=lean),
-            n_bin, BB)
+        NB=NB, CB=CB, BB=BB, C=C, pair_budget=pair_budget,
+        aligned_db=False)
+    return _chain_pack_tail(mi, ci, dc, live, q_seeds, q_pos, base_min,
+                            q_len, t_seeds, t_pos, k=k, top_k=top_k,
+                            lean=lean) + (n_ok, n_bin)
 
 
-def _slice_chains(head, cq, ct, B: int, Lb: int):
-    """Kept-rows x real-length view of an overlap dispatch result."""
-    return head[:B], cq[:B, :Lb], ct[:B, :Lb]
+def _walk_back(start, bp, qi, tj, chain_len: int):
+    """The JAX engine's best-chain walk: step i of row r is the i-th
+    predecessor of anchor ``start[r]`` through the backpointers ``bp``
+    (-1 ends a chain; a start of -1 is an empty walk), and gives that
+    anchor's ``qi`` and ``tj``, -1 past the chain's start.  Computed by
+    pointer doubling (the 2^k-th predecessor table, squared k times), in
+    a few dozen kernels, instead of ``chain_len`` sequential steps of
+    several each, which would fill the card's launch queue and make the
+    dispatch wait for the device.  Returns ``(cq, ct)`` ``[P, chain_len]``
+    int32."""
+    P, A = bp.shape
+    dev = bp.device
+    # index A is a sink that a finished walk stays in
+    sink = torch.full((P, 1), A, dtype=torch.int64, device=dev)
+    jump = torch.cat([torch.where(bp >= 0, bp.long(), A), sink], dim=1)
+    steps = torch.arange(chain_len, device=dev)
+    pos = torch.where(start >= 0, start, A).long()[:, None].expand(
+        P, chain_len)
+    bit = 0
+    while (1 << bit) < chain_len:
+        hop = ((steps >> bit) & 1).bool()[None, :]
+        pos = torch.where(hop, torch.gather(jump, 1, pos), pos)
+        bit += 1
+        if (1 << bit) < chain_len:
+            jump = torch.gather(jump, 1, jump)
+    end = torch.full((P, 1), -1, dtype=qi.dtype, device=dev)
+    return (torch.gather(torch.cat([qi, end], dim=1), 1, pos),
+            torch.gather(torch.cat([tj, end.to(tj.dtype)], dim=1), 1, pos))
 
 
 def _overlap_from_counts(counts, dcounts, q_seeds, q_pos, min_count,
                          base_min, t_seeds, t_pos, *, k: int,
-                         variant: str = "aligner", chunk: int = 512,
+                         pair_budget: int, variant: str = "aligner",
                          chain_len: int = 128):
-    """Gate + forward chain DP + best-chain walk from retrieval counts.
+    """Gate + forward chain DP + best-chain walk from retrieval counts,
+    over the first ``pair_budget`` passing pairs.
 
     For every gate-passing (query row, chunk) pair, in query-major /
     chunk-ascending order, the best chain ends at the first anchor of
     maximal forward score (``jnp.argmax``'s tie-break); its anchors are
     walked back through the backpointers for ``chain_len`` steps.  Rows
-    whose best chain is shorter than ``max(1, base_min)`` are dropped, the
-    rest kept in order.  Returns ``(head [n, 4] int32 (query row, chunk,
-    best chain length, distinct count), cq [n, chain_len] int8, ct
-    [n, chain_len] int16 (chain query / target seed indices, end -> start,
-    -1 padded), max kept min(length, chain_len))``, the arrays on the
-    device and the length a Python int."""
-    C = counts.shape[1]
+    whose best chain reaches ``max(1, base_min)`` are kept, compacted to
+    the front in order.  Returns ``(head [B, 4] int32 (query row, chunk,
+    best chain length, distinct count; -1 rows past the kept ones), cq
+    [B, chain_len] int8, ct [B, chain_len] int16 (chain query / target
+    seed indices, end -> start, -1 padded), n_ok, n_keep, mx)``: the
+    passing and kept counts and the longest kept min(length, chain_len)
+    as 0-d device tensors, which collect reads to re-run above the budget
+    and to slice the rows it fetches."""
+    M, C = counts.shape
     dev = counts.device
     ok = (counts >= min_count[:, None]) & (dcounts >= base_min[:, None]) \
         & (min_count[:, None] > 0)
-    sel, n_ok = compact_indices(ok.reshape(-1))
-    if n_ok == 0:
-        return (torch.empty((0, 4), dtype=torch.int32, device=dev),
-                torch.empty((0, chain_len), dtype=torch.int8, device=dev),
-                torch.empty((0, chain_len), dtype=torch.int16, device=dev),
-                0)
-    mi = torch.div(sel, C, rounding_mode="floor")
-    ci = sel % C
-    anchors = _build_anchors(mi, ci, q_seeds, q_pos, t_seeds, t_pos, chunk)
+    B = min(pair_budget, M * C)
+    sel, n_ok = compact_indices(ok.reshape(-1), B)
+    live, mi, ci = _budget_slots(sel, M * C, C)
+    anchors = _build_anchors(mi, ci, live, q_seeds, q_pos, t_seeds, t_pos)
     out = dp_forward_lean(anchors, k, variant)
     f, bp = out["f"], out["bp"]
     qi_a, tj_a = out["qi"], out["tj"]
-    best_len = f.amax(dim=1)
+    best_len = torch.where(live, f.amax(dim=1), 0)
     best_a = torch.argmax(f, dim=1)          # first maximum, as jnp.argmax
-    rows = torch.arange(f.shape[0], device=dev)
-    a = torch.where(best_len > 0, best_a, -1)
-    cqs, cts = [], []
-    for _ in range(chain_len):
-        on = a >= 0
-        ac = a.clamp(min=0)
-        cqs.append(torch.where(on, qi_a[rows, ac], -1))
-        cts.append(torch.where(on, tj_a[rows, ac], -1))
-        a = torch.where(on, bp[rows, ac].long(), -1)
     # qi < nq <= 128 and tj < nt <= 4096: the JAX engine's int8 / int16
     # fetch types
-    cq = torch.stack(cqs, dim=1).to(torch.int8)
-    ct = torch.stack(cts, dim=1).to(torch.int16)
-    head = torch.stack([mi.to(torch.int32), ci.to(torch.int32),
-                        best_len.to(torch.int32),
+    cq, ct = _walk_back(torch.where(best_len > 0, best_a, -1), bp, qi_a,
+                        tj_a, chain_len)
+    cq, ct = cq.to(torch.int8), ct.to(torch.int16)
+    head = torch.stack([torch.where(live, mi, -1).to(torch.int32),
+                        ci.to(torch.int32), best_len.to(torch.int32),
                         dcounts[mi, ci].to(torch.int32)], dim=1)
-    keep = best_len >= base_min[mi].clamp(min=1)
-    head, cq, ct = head[keep], cq[keep], ct[keep]
-    mx = int(best_len[keep].clamp(max=chain_len).amax()) if len(head) else 0
-    return head, cq, ct, mx
+    # the kept rows (best chain at least the row's static minimum)
+    # compacted to the front, in order
+    keep = live & (best_len >= base_min[mi].clamp(min=1))
+    sel2, n_keep = compact_indices(keep, B)
+    s2 = sel2.clamp(max=B - 1)
+    head = torch.where((sel2 >= B)[:, None], -1, head[s2])
+    mx = torch.where(keep, best_len.clamp(max=chain_len), 0).amax()
+    return head, cq[s2], ct[s2], n_ok, n_keep, mx
 
 
 def _fused_overlap(q_seeds, q_pos, q_rb, q_db, min_count, base_min,
-                   membership, t_seeds, t_pos, *, k: int,
-                   variant: str = "aligner", chunk: int = 512,
-                   chain_len: int = 128):
+                   membership, t_seeds, t_pos, *, k: int, pair_budget: int,
+                   variant: str = "aligner", chain_len: int = 128):
     """Retrieval + gate + chain DP + best-chain walk with the run/distinct
     bucket arrays shipped from the host (queries whose seeds overflow the
     shipped width); see ``_overlap_from_counts``."""
@@ -507,13 +570,13 @@ def _fused_overlap(q_seeds, q_pos, q_rb, q_db, min_count, base_min,
     dcounts = _count_rows(membership, q_db)
     return _overlap_from_counts(counts, dcounts, q_seeds, q_pos, min_count,
                                 base_min, t_seeds, t_pos, k=k,
-                                variant=variant, chunk=chunk,
+                                pair_budget=pair_budget, variant=variant,
                                 chain_len=chain_len)
 
 
 def _fused_overlap_d(q_pos, min_count, base_min, q_seeds, usable,
-                     membership, t_seeds, t_pos, *, k: int,
-                     variant: str = "aligner", chunk: int = 512,
+                     membership, t_seeds, t_pos, *, k: int, pair_budget: int,
+                     variant: str = "aligner",
                      chain_len: int = 128, hashed: bool = False):
     """``_fused_overlap`` with the buckets derived on the device from the
     seed ids (``_derive_buckets``): the standard overlap path."""
@@ -522,15 +585,63 @@ def _fused_overlap_d(q_pos, min_count, base_min, q_seeds, usable,
     counts, dcounts = _count_rows_pair(membership, q_rb, q_db)
     return _overlap_from_counts(counts, dcounts, q_seeds, q_pos, min_count,
                                 base_min, t_seeds, t_pos, k=k,
-                                variant=variant, chunk=chunk,
+                                pair_budget=pair_budget, variant=variant,
                                 chain_len=chain_len)
+
+
+def map_budget(rows: int, collisions: bool) -> int:
+    """The JAX engine's default pair budget of a map dispatch over
+    ``rows`` query rows (~0.3 passing pairs a row are observed; this
+    allows 1, 2 for small batches), doubled under heavy hash-bucket
+    collisions (more than 2 seeds a bucket), which inflate gate passes."""
+    b = max(512, 2 * rows) if rows <= 512 else max(4096, rows)
+    return 2 * b if collisions else b
+
+
+def overlap_budget(rows: int) -> int:
+    """The JAX engine's default pair budget of an overlap dispatch: 16
+    pairs a query (all-vs-all retrieves ~coverage candidates a query) on
+    a 4096 grid."""
+    return max(4096, ((16 * rows + 4095) // 4096) * 4096)
+
+
+def _per_block(budget: int, D: int) -> int:
+    """A batch's pair budget split evenly over its ``D`` data blocks, as
+    the JAX engine's one budget covers the whole batch on its mesh."""
+    return -(-budget // D)
+
+
+def _tight(n: int) -> int:
+    """The map budget sized from a collected count ``n``: a quarter more,
+    on a 256 grid."""
+    return max(256, ((n + n // 4 + 255) // 256) * 256)
+
+
+def _grown(n: int) -> int:
+    """The 4096 grid of ``n`` plus an eighth: the overlap budget that the
+    JAX engine escalates to and the JAX overlapper plans after seeing
+    ``n`` passing pairs."""
+    return ((n + n // 8 + 4095) // 4096) * 4096
+
+
+def _map_fetch(res) -> HostCopy:
+    """Host copy of a map block: its counts ``(n_ok[, n_bin])``, head and
+    packed rows."""
+    return HostCopy([torch.stack(res[2:]), res[0], res[1]])
+
+
+def _overlap_fetch(res) -> HostCopy:
+    """Host copy of an overlap block's counts ``(n_ok, n_keep, mx)``; its
+    rows are fetched at collect, sliced to the kept ones."""
+    return HostCopy([torch.stack(res[3:6])])
 
 
 class MapEngine:
     """Resident device index + one-dispatch query pipelines for the mapper
     (flat or binned gate) and the overlapper.  ``routes`` counts the
     dispatches per fused path, ``bins`` the binned dispatches per
-    ``(n_bin, BB)``."""
+    ``(n_bin, BB)`` at the width their collect ended on, ``reruns`` the
+    re-runs at collect by cause (``pair_budget``, ``BB``, both)."""
 
     STATE_KEYS = ("membership", "t_seeds", "t_pos", "usable_dev",
                   "chunk_off", "chunk_inset", "chunk_len")
@@ -560,6 +671,10 @@ class MapEngine:
         self.hit_fraction = hit_fraction
         self.routes = Counter()
         self.bins = Counter()
+        self.reruns = Counter()
+        # (route, rows) -> the largest block count of the last collected
+        # map dispatch of that route and size (``_map_budget``)
+        self._seen = {}
         S = index.num_seeds
         self.H = match_ops.choose_hash_size(S)
         self.num_seeds = S
@@ -867,16 +982,20 @@ class MapEngine:
 
     # -- dispatch / collect ---------------------------------------------
     def dispatch_packed(self, packed: tuple, base_min: np.ndarray,
-                        top_k: int = 4, min_sets: int = 5):
-        """Run the fused pipeline on a prepacked query-feature tuple
-        (``pack_query_windows``), one block of rows per data shard.
-        Returns ``(M, [(first row, (head, packed16)), ...])`` with the
-        blocks' results on their devices, or ``(0, None)`` for an empty
-        batch or index."""
+                        pair_budget: int = 0, top_k: int = 4,
+                        min_sets: int = 5):
+        """Enqueue the fused pipeline on a prepacked query-feature tuple
+        (``pack_query_windows``), one block of rows per data shard, and
+        return without reading anything back: ``(M, [Pending, ...],
+        (route, M))``, or ``(0, None, None)`` for an empty batch or index.
+        Each block runs at ``pair_budget`` passing pairs (0:
+        ``_map_budget``) and, binned, at the selection width ``BB`` the
+        JAX engine starts from; ``collect_arrays_many`` re-runs a block
+        that exceeded either."""
         q_seeds, q_pos, q_rb, q_db, num_sets, q_len = packed[:6]
         M = q_seeds.shape[0]
         if M == 0 or self.C == 0:
-            return (0, None)
+            return (0, None, None)
         # right-size the seed axis: halve it when every row's live seeds
         # fit half the width (anchors = 2 * nq_eff per pair)
         nq_full = self.nq
@@ -901,79 +1020,125 @@ class MapEngine:
         nq = q_seeds.shape[1]
         derive = (not self.seed_sharded and num_seeds_arr is not None
                   and int(np.max(num_seeds_arr, initial=0)) <= nq)
+        if self.seed_sharded:
+            route = "_map_from_counts"
+        else:
+            route = ("_fused_map_b" if self._binned else "_fused_map_") \
+                + ("d" if derive else "c")
         # a data split's padding rows (min_count 0) never pass the gate
         rows = dict(q_pos=(q_pos, 0), min_count=(min_count, 0),
                     base_min=(base_min, 1 << 14), q_len=(q_len, 0),
                     q_seeds=(q_seeds, -1))
         if not derive:
             rows.update(q_rb=(q_rb, -1), q_db=(q_db, -1))
+        budget = pair_budget or self._map_budget(route, M)
+        keep = []
         blocks = []
         for d, lo, parts in self._grid.split_rows(
                 [np.asarray(a, np.int32) for a, _ in rows.values()],
-                [f for _, f in rows.values()]):
-            blocks.append((lo, self._dispatch_block(
-                dict(zip(rows, parts)), self._tables(d), derive, top_k)))
-        return (M, blocks)
+                [f for _, f in rows.values()], keep):
+            q = dict(zip(rows, parts))
+            tabs = self._tables(d)
+            self.routes[route] += 1
+            blocks.append(Pending(
+                lo, tabs["device"],
+                functools.partial(self._dispatch_block, q, tabs, route,
+                                  top_k),
+                (budget, self._BB if self._binned else 0), keep,
+                _map_fetch))
+        return (M, blocks, (route, M))
 
-    def _dispatch_block(self, q: dict, tabs: dict, derive: bool,
-                        top_k: int):
-        """One data shard's fused map pipeline on its device."""
+    def _map_budget(self, route: str, M: int) -> int:
+        """The pair budget of each block of a map dispatch of ``M`` rows
+        on ``route``: the JAX engine's (``map_budget``, split over the
+        blocks) or, once a dispatch of that route and size has been
+        collected, ``_tight`` of its largest block count when smaller.
+        Any budget gives the same rows (collect re-runs an overflow); a
+        tight one spares the device the padding slots' anchors."""
+        budget = _per_block(map_budget(M, self.num_seeds > 2 * self.H),
+                            self._grid.shape["data"])
+        seen = self._seen.get((route, M))
+        return budget if seen is None else min(budget, _tight(seen))
+
+    def _dispatch_block(self, q: dict, tabs: dict, route: str, top_k: int,
+                        budget: int, BB: int):
+        """One data shard's fused map pipeline on its device, at ``budget``
+        pairs (and width ``BB``, binned): ``(head, packed16, n_ok[,
+        n_bin])`` on the device."""
         args = dict(q_pos=q["q_pos"], min_count=q["min_count"],
                     base_min=q["base_min"], q_len=q["q_len"],
                     q_seeds=q["q_seeds"], t_seeds=tabs["t_seeds"],
-                    t_pos=tabs["t_pos"], k=self.k, top_k=top_k,
-                    lean=self.lean)
-        if self.seed_sharded:
-            self.routes["_map_from_counts"] += 1
+                    t_pos=tabs["t_pos"], k=self.k, pair_budget=budget,
+                    top_k=top_k, lean=self.lean)
+        if route == "_map_from_counts":
             dev = tabs["device"]
             return _map_from_counts(
                 sharded_counts(tabs["mem_blocks"], q["q_rb"], dev),
                 sharded_counts(tabs["mem_blocks"], q["q_db"], dev), **args)
         args["membership"] = tabs["membership"]
-        if self._binned:
-            gate = dict(NB=self._NB, CB=self._CB, BB=self._BB, C=self.C)
-            if derive:
-                self.routes["_fused_map_bd"] += 1
-                res, n_bin, BB = _fused_map_bd(
-                    usable=tabs["usable_dev"], bin_mem=tabs["bin_mem1"],
-                    hashed=self._hashed, hashed1=self._hashed1, **gate,
-                    **args)
-            else:
-                self.routes["_fused_map_bc"] += 1
-                res, n_bin, BB = _fused_map_bc(
-                    q_rb=q["q_rb"], q_db=q["q_db"],
-                    bin_mem=tabs["bin_mem2"], **gate, **args)
-            self.bins[(n_bin, BB)] += 1
-            return res
-        if derive:
-            self.routes["_fused_map_d"] += 1
+        gate = dict(NB=self._NB, CB=self._CB, BB=BB, C=self.C) \
+            if self._binned else {}
+        if route == "_fused_map_bd":
+            return _fused_map_bd(
+                usable=tabs["usable_dev"], bin_mem=tabs["bin_mem1"],
+                hashed=self._hashed, hashed1=self._hashed1, **gate, **args)
+        if route == "_fused_map_bc":
+            return _fused_map_bc(q_rb=q["q_rb"], q_db=q["q_db"],
+                                 bin_mem=tabs["bin_mem2"], **gate, **args)
+        if route == "_fused_map_d":
             return _fused_map_d(usable=tabs["usable_dev"],
                                 hashed=self._hashed, **args)
-        self.routes["_fused_map_c"] += 1
         return _fused_map_c(q_rb=q["q_rb"], q_db=q["q_db"], **args)
+
+    def _collect_block(self, p: Pending):
+        """A map block's host rows, exact: while its passing count exceeds
+        the budget or (binned) its most passing bins exceed ``BB``, re-run
+        it with the budget grown 4x until it holds the count and ``BB`` at
+        ``_bb_final``, the width the JAX engine's doubling ends on (the
+        passing bins do not depend on ``BB``).  Returns ``(head, packed)``
+        of the live rows and the passing count."""
+        cnt, head, packed = p.host.wait()
+        n_ok = int(cnt[0])
+        n_bin = int(cnt[1]) if self._binned else 0
+        budget, BB = p.args
+        while n_ok > budget or n_bin > BB:
+            cause = [c for c, over in (("pair_budget", n_ok > budget),
+                                       ("BB", n_bin > BB)) if over]
+            self.reruns["+".join(cause)] += 1
+            BB = _bb_final(n_bin, BB, self._NB) if self._binned else 0
+            while n_ok > budget:
+                budget *= 4
+            cnt, head, packed = p.rerun(budget, BB)
+            n_ok = int(cnt[0])
+        if self._binned:
+            self.bins[(n_bin, BB)] += 1
+        live = head[:, 0] >= 0
+        return head[live], packed[live].astype(np.int32), n_ok
 
     def collect_arrays_many(self, futs_list):
         """Host arrays of several dispatches: per dispatch ``(head [N, 3]
         int32 (query row, chunk, distinct count), summary [N, W] int32)``
         ordered query-major / chunk-ascending (the reference's candidate
-        walk order), or None for an empty dispatch.  Each block's query
-        rows are offset by its first row; binned engines' chunk ids are
-        translated from engine to index order and the rows sorted again."""
+        walk order), or None for an empty dispatch.  Each block is made
+        exact first (``_collect_block``); its query rows are offset by its
+        first row; binned engines' chunk ids are translated from engine to
+        index order and the rows sorted again."""
         out = []
-        for _, blocks in futs_list:
+        for _, blocks, shape in futs_list:
             if blocks is None:
                 out.append(None)
                 continue
-            parts = {}
-            for lo, res in blocks:
-                head, packed = (res[0].cpu().numpy(),
-                                res[1].cpu().numpy().astype(np.int32))
-                head[:, 0] += lo
+            parts, counts = {}, []
+            for p in blocks:
+                head, packed, n_ok = self._collect_block(p)
+                counts.append(n_ok)
+                head[:, 0] += p.lo
                 if self._perm is not None:
                     head[:, 1] = self._perm[head[:, 1]]
                     order = np.lexsort((head[:, 1], head[:, 0]))
                     head, packed = head[order], packed[order]
-                parts[lo] = (head, packed)
+                parts[p.lo] = (head, packed)
+            self._seen[shape] = max(counts)
             parts = self._grid.gather(parts)
             out.append(parts[0] if len(parts) == 1 else tuple(
                 np.concatenate([p[i] for p in parts]) for i in range(2)))
@@ -1017,18 +1182,24 @@ class MapEngine:
 
     # -- overlap dispatch / collect --------------------------------------
     def query_chains(self, seed_queries: List, base_min: np.ndarray,
-                     chain_len: int = 128, variant: str = "aligner",
-                     min_sets: int = 5, _defer: bool = False):
+                     pair_budget: int = 0, chain_len: int = 128,
+                     variant: str = "aligner", min_sets: int = 5,
+                     _defer: bool = False, shape_plan: dict = None):
         """Fused retrieval + gate + chain + best-chain extraction.
 
         Returns per query a list of (chunk idx, distinct count, best chain
         length, query-anchor indices, target-anchor indices) in chunk
         order: the overlapper's per-candidate best alignments.  Target
         indices address the chunk's own seed list (truncated at
-        ``self.nt`` seeds)."""
+        ``self.nt`` seeds).  Each data block runs at ``pair_budget``
+        passing pairs (0: ``overlap_budget`` of the batch's rows split
+        over the blocks, raised to the job's ``shape_plan["budget"]``,
+        which collect keeps at ``_grown`` of the largest block count it
+        has seen)."""
         M = len(seed_queries)
         if M == 0 or self.C == 0:
             return []
+        plan = shape_plan if shape_plan is not None else {}
         # the DP scans 2 * nq_eff anchors and the walk chain_len steps:
         # sized to the batch's real max seed count on a 64 grid
         max_ns = max((len(q.seeds) for q in seed_queries), default=1)
@@ -1044,10 +1215,6 @@ class MapEngine:
         chain_len = min(chain_len, nq_eff)
         min_count = (self.hit_fraction * num_sets + 0.5).astype(np.int64)
         min_count[num_sets < min_sets] = 0
-        # anchor-build chunk: keeps the [CH, nq, nt] equality tensor near
-        # 256 MB as nt grows
-        a_chunk = max(128, min(1024,
-                               (1 << 28) // max(1, nq_eff * self.nt)))
         # a data split's padding rows (min_count 0) never pass the gate
         rows = dict(q_pos=(q_pos, 0), min_count=(min_count, 0),
                     q_seeds=(q_seeds, -1))
@@ -1057,61 +1224,92 @@ class MapEngine:
         else:
             rows.update(base_min=(base_min, 1 << 20), q_rb=(q_rb, -1),
                         q_db=(q_db, -1))
+        route = ("_overlap_from_counts" if self.seed_sharded
+                 else "_fused_overlap_d" if derive else "_fused_overlap")
+        budget = pair_budget or max(
+            _per_block(overlap_budget(M), self._grid.shape["data"]),
+            plan.get("budget", 0))
+        keep = []
         blocks = []
         for d, lo, parts in self._grid.split_rows(
                 [np.asarray(a, np.int32) for a, _ in rows.values()],
-                [f for _, f in rows.values()]):
+                [f for _, f in rows.values()], keep):
             q = dict(zip(rows, parts))
             tabs = self._tables(d)
             common = dict(q_pos=q["q_pos"], min_count=q["min_count"],
                           q_seeds=q["q_seeds"], base_min=q["base_min"],
                           t_seeds=tabs["t_seeds"], t_pos=tabs["t_pos"],
-                          k=self.k, variant=variant, chunk=a_chunk,
+                          k=self.k, variant=variant,
                           chain_len=chain_len)
-            if self.seed_sharded:
-                self.routes["_overlap_from_counts"] += 1
-                dev = tabs["device"]
-                res = _overlap_from_counts(
-                    sharded_counts(tabs["mem_blocks"], q["q_rb"], dev),
-                    sharded_counts(tabs["mem_blocks"], q["q_db"], dev),
-                    **common)
-            elif derive:
-                self.routes["_fused_overlap_d"] += 1
-                res = _fused_overlap_d(usable=tabs["usable_dev"],
-                                       membership=tabs["membership"],
-                                       hashed=self._hashed, **common)
-            else:
-                self.routes["_fused_overlap"] += 1
-                res = _fused_overlap(q_rb=q["q_rb"], q_db=q["q_db"],
-                                     membership=tabs["membership"],
-                                     **common)
-            blocks.append((lo, res))
-        futs = (M, blocks)
+            self.routes[route] += 1
+            blocks.append(Pending(
+                lo, tabs["device"],
+                functools.partial(self._overlap_block, q, tabs, route,
+                                  common),
+                (budget,), keep, _overlap_fetch))
+        futs = (M, blocks, plan)
         return futs if _defer else self.collect_chains(futs)
 
+    def _overlap_block(self, q: dict, tabs: dict, route: str, common: dict,
+                       budget: int):
+        """One data shard's fused overlap pipeline on its device, at
+        ``budget`` pairs: ``(head, cq, ct, n_ok, n_keep, mx)`` on the
+        device."""
+        if route == "_overlap_from_counts":
+            dev = tabs["device"]
+            return _overlap_from_counts(
+                sharded_counts(tabs["mem_blocks"], q["q_rb"], dev),
+                sharded_counts(tabs["mem_blocks"], q["q_db"], dev),
+                pair_budget=budget, **common)
+        if route == "_fused_overlap_d":
+            return _fused_overlap_d(usable=tabs["usable_dev"],
+                                    membership=tabs["membership"],
+                                    hashed=self._hashed, pair_budget=budget,
+                                    **common)
+        return _fused_overlap(q_rb=q["q_rb"], q_db=q["q_db"],
+                              membership=tabs["membership"],
+                              pair_budget=budget, **common)
+
     def dispatch_chains(self, seed_queries: List, base_min: np.ndarray,
-                        chain_len: int = 128, variant: str = "aligner",
-                        min_sets: int = 5):
-        """First half of ``query_chains``: run the fused pipeline and
-        return its device result for ``collect_chains``."""
-        return self.query_chains(seed_queries, base_min, chain_len,
-                                 variant, min_sets, _defer=True)
+                        pair_budget: int = 0, chain_len: int = 128,
+                        variant: str = "aligner", min_sets: int = 5,
+                        shape_plan: dict = None):
+        """First half of ``query_chains``: enqueue the fused pipeline and
+        return, reading nothing back, its pending blocks for
+        ``collect_chains``."""
+        return self.query_chains(seed_queries, base_min, pair_budget,
+                                 chain_len, variant, min_sets, _defer=True,
+                                 shape_plan=shape_plan)
 
     def collect_chains_raw(self, futs):
         """Host arrays of a ``dispatch_chains`` result: ``(M, head, cq,
         ct)`` with head columns (query row, chunk, best chain length,
         distinct count) over the kept rows, in query-major /
         chunk-ascending order, and the chains sliced to the longest kept
-        one (-1 past each row's own chain)."""
+        one (-1 past each row's own chain).  A block whose passing count
+        exceeds its budget re-runs at ``max(2 x budget, _grown(count))``
+        until it holds it, as the JAX collect does; every count raises the
+        job plan's budget to ``_grown`` of it.  The rows are sliced on the
+        device to the kept ones and the real length before they are
+        fetched."""
         if isinstance(futs, list):       # empty-input fast path
             return 0, np.zeros((0, 4), np.int32), None, None
-        M, blocks = futs
+        M, blocks, plan = futs
         parts = {}
-        for lo, (head, cq, ct, mx) in blocks:
-            head, cq, ct = _slice_chains(head, cq, ct, len(head), max(1, mx))
-            head = head.cpu().numpy()
-            head[:, 0] += lo
-            parts[lo] = (head, cq.cpu().numpy(), ct.cpu().numpy())
+        for p in blocks:
+            (cnt,) = p.host.wait()
+            n = int(cnt[0])
+            while n > p.args[0]:
+                self.reruns["pair_budget"] += 1
+                (cnt,) = p.rerun(max(p.args[0] * 2, _grown(n)))
+                n = int(cnt[0])
+            plan["budget"] = max(plan.get("budget", 0), _grown(n))
+            nk, Lb = int(cnt[1]), max(1, int(cnt[2]))
+            head, cq, ct = p.result[:3]
+            head, cq, ct = HostCopy([head[:nk], cq[:nk, :Lb],
+                                     ct[:nk, :Lb]]).wait()
+            head[:, 0] += p.lo
+            parts[p.lo] = (head, cq, ct)
         parts = self._grid.gather(parts)
         if len(parts) == 1:
             return (M,) + parts[0]

@@ -21,29 +21,43 @@ to the lower adapter index), and the chain DP (``chain.dp_from_anchors`` ->
 middle pass's detection rows are computed on the device; only they come
 back to the host.
 
-Dropped from the JAX engine because no output depends on them: the pair
-and detection budgets and their re-runs (``torch.nonzero`` yields every
-passing pair and detection, in the order the unbudgeted run gives),
-batch-size buckets, the rotating host staging buffers, the resident copy
-of the thresholds, the ``lax.map`` segments and the one-hot picks.  So is
+Each ``*_dispatch`` uploads its batch without waiting (pinned staging,
+``transfer.upload``), enqueues the verdict and the host copy of its
+result, and returns ``transfer.Pending`` blocks; nothing is read back
+until ``*_collect``.  As in the JAX engine, the chain DP runs over a fixed
+pair budget of gate-passing pairs (``_passing``: ascending pair order,
+dead slots after them, with no anchor), and the middle pass keeps at most
+``det_budget`` detection rows a block; collect reads the counts, re-runs
+a block over its pair budget over every passing pair, and one over its
+detection budget so at 4x that budget, whose first rows it keeps.  So above
+``4 * det_budget`` detections in one block the middle pass drops the
+rest, exactly as the JAX package does.
+
+Dropped from the JAX engine because no output depends on them:
+batch-size buckets, the rotating host staging buffers (a pinned staging
+tensor per upload, kept by the dispatch's blocks), the resident copy of
+the thresholds, the ``lax.map`` segments and the one-hot picks.  So is
 the paired edge route (``_fused_edge_pair``, ``edge_pair_dispatch`` /
 ``edge_pair_collect`` and the front/back tables stacked for them):
 stacking bought the JAX engine one XLA call for both sides, but here it
 would be the two per-side verdicts plus stacked copies, so each side takes
 ``edge_verdict_dispatch``.  Pairs that fail the gate chain nowhere: they
-report the empty summary the JAX engine gives them.  Only ``_fused_match``, which returns every pair's
-summary row, chains them all.  ``chain`` and ``_chain_from_windows``
-have no caller and are not ported.
+report the empty summary the JAX engine gives them.  Only
+``_fused_match``, which returns every pair's summary row, chains them
+all.  ``chain`` and ``_chain_from_windows`` have no caller and are not
+ported.
 
 With a device grid (``mesh``) the tables replicate to each data shard's
 device and every window batch splits into the grid's data shards
 (contiguous, equal row blocks; padding rows have no k-mers, so they pass
-no gate); each block runs on its shard's device and the collects put the
-blocks' rows back in order (per-adapter totals summed, coverages
+no gate); each block is enqueued on its shard's device without waiting,
+so the blocks run at the same time on distinct cards, and the collects
+put the blocks' rows back in order (per-adapter totals summed, coverages
 maximized).
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import List
 
 import numpy as np
@@ -51,8 +65,9 @@ import torch
 
 from .. import resolve_device
 from ..parallel.mesh import DeviceGrid
-from .chain import compact_indices, dp_from_anchors, make_anchors_topk, \
-    summarize_dp, summarize_scalars, unpack_summary
+from .chain import anchors_of_slots, compact_indices, dp_from_anchors, \
+    make_anchors_topk, summarize_dp, summarize_scalars, unpack_summary
+from .transfer import HostCopy, Pending, upload
 
 _BIGM = 1 << 20  # impossible min-match for gate-failing pairs
 # bound on the [m, W, A] int8 block one gate gather materializes
@@ -66,8 +81,9 @@ def _unpack_kmers(packed, k: int, W: int):
     byte, first base in the high bits) -> ``[n, W]`` int32 rolling
     k-mers."""
     n = packed.shape[0]
-    shifts = torch.tensor([6, 4, 2, 0], dtype=torch.int32,
-                          device=packed.device)
+    # (6, 4, 2, 0), made on the device: a tensor built from a host list
+    # would be a copy that waits for the device's queue
+    shifts = torch.arange(6, -1, -2, dtype=torch.int32, device=packed.device)
     codes = ((packed.to(torch.int32)[:, :, None] >> shifts) & 3).reshape(
         n, -1)
     acc = torch.zeros((n, W), dtype=torch.int32, device=packed.device)
@@ -111,34 +127,56 @@ def _gate_topk_pairs(kmers, lens, km_table, gate_min, chain_min,
     return ei, ai, mm
 
 
-def _anchors_chunked(kmers, lens, a_seeds, a_pos, ei, ai,
+def _anchors_chunked(kmers, lens, a_seeds, a_pos, ei, ai, live=None,
                      chunk: int = _ANCHOR_CHUNK):
     """Anchors of the (window ``ei``, adapter ``ai``) pairs, built
     ``chunk`` pairs at a time.  The adapter tables are in k-mer space, so
     window k-mers compare with them directly; positions past a window's
-    k-mer count are -1."""
+    k-mer count are -1, and so is every position of a dead budget slot
+    (``live`` False), which therefore has no anchor
+    (``chain.anchors_of_slots``)."""
     W = kmers.shape[1]
     pos = torch.arange(W, dtype=torch.int32, device=kmers.device)
-    parts = []
-    for lo in range(0, max(1, ei.shape[0]), chunk):
-        e, a = ei[lo:lo + chunk], ai[lo:lo + chunk]
-        ts = torch.where(pos[None, :] < lens[e][:, None], kmers[e], -1)
-        parts.append(make_anchors_topk(
-            a_seeds[a].to(torch.int32), a_pos[a].to(torch.int32), ts,
-            pos.expand(e.shape[0], W), per_seed=2))
-    return {key: torch.cat([p[key] for p in parts]) for key in parts[0]}
+
+    def build(rows):
+        e_all, a_all, on = (ei, ai, live) if rows is None \
+            else (ei[rows], ai[rows], live[rows])
+        parts = []
+        for lo in range(0, max(1, e_all.shape[0]), chunk):
+            e, a = e_all[lo:lo + chunk], a_all[lo:lo + chunk]
+            n_e = lens[e] if on is None else torch.where(
+                on[lo:lo + chunk], lens[e], 0)
+            ts = torch.where(pos[None, :] < n_e[:, None], kmers[e], -1)
+            parts.append(make_anchors_topk(
+                a_seeds[a].to(torch.int32), a_pos[a].to(torch.int32), ts,
+                pos.expand(e.shape[0], W), per_seed=2))
+        return {key: torch.cat([p[key] for p in parts]) for key in parts[0]}
+    return build(None) if live is None else anchors_of_slots(live, build)
 
 
-def _passing(ei, ai, mm):
-    """The gate-passing pairs, in ascending pair order."""
-    sel, _ = compact_indices(mm < _BIGM)
-    return sel, ei[sel], ai[sel], mm[sel]
+def _passing(ei, ai, mm, pair_budget: int):
+    """The gate-passing pairs compacted, in ascending pair order, to
+    ``pair_budget`` slots (every pair's slot when 0 or not below the pair
+    count: the unbudgeted form).  Returns ``(sel, live, ei, ai, mm,
+    n_ok)``: each slot's pair index (the pair count for a dead slot), its
+    liveness, the slots' pairs (dead ones at window and adapter 0 with the
+    impossible min-match) and the passing count, a 0-d device tensor."""
+    P = ei.shape[0]
+    B = pair_budget if 0 < pair_budget < P else P
+    sel, n_ok = compact_indices(mm < _BIGM, B)
+    live = sel < P
+    cl = sel.clamp(max=max(0, P - 1))
+    return (sel, live, torch.where(live, ei[cl], 0),
+            torch.where(live, ai[cl], 0), torch.where(live, mm[cl], _BIGM),
+            n_ok)
 
 
-def _chain_pairs(kmers, lens, a_seeds, a_pos, a_len, ei, ai, mm, k: int):
-    """Anchors, chain DP and scalar summaries of the pairs (ei, ai)."""
+def _chain_pairs(kmers, lens, a_seeds, a_pos, a_len, ei, ai, mm, live,
+                 k: int):
+    """Anchors, chain DP and scalar summaries of the budget slots'
+    pairs (ei, ai); dead slots have no anchor."""
     out = dp_from_anchors(
-        _anchors_chunked(kmers, lens, a_seeds, a_pos, ei, ai), k)
+        _anchors_chunked(kmers, lens, a_seeds, a_pos, ei, ai, live), k)
     return out, summarize_scalars(out, mm, a_len[ai], k)
 
 
@@ -163,25 +201,29 @@ def _fused_match(packed, lens, km_table, gate_min, chain_min,
 
 def _fused_edge_verdict(packed, lens, km_table, gate_min, chain_min,
                         a_seeds, a_pos, a_len, is_barcode, k: int, W: int,
-                        top_t: int = 8):
+                        top_t: int = 8, pair_budget: int = 0):
     """Edge pass: gate + chain + the per-edge adapter walk of the
-    reference's findMatches (ref: trim/trim.go:354-428).
+    reference's findMatches (ref: trim/trim.go:354-428), the chain DP over
+    the first ``pair_budget`` gate-passing pairs (``_passing``).
 
     Returns (verdict ``[n, 4]`` int32 of (found, best_match, earliest,
-    latest), per-adapter chain-count totals ``[AP]`` int32)."""
+    latest), per-adapter chain-count totals ``[AP]`` int32, gate-passing
+    pair count); collect re-runs over every passing pair when the count
+    exceeds the budget."""
     kmers = _unpack_kmers(packed, k, W)
     n = kmers.shape[0]
     ei, ai, mm = _gate_topk_pairs(kmers, lens, km_table, gate_min,
                                   chain_min, top_t)
-    sel, ei_s, ai_s, mm_s = _passing(ei, ai, mm)
+    sel, live, ei_s, ai_s, mm_s, n_ok = _passing(ei, ai, mm, pair_budget)
     _, s = _chain_pairs(kmers, lens, a_seeds, a_pos, a_len, ei_s, ai_s,
-                        mm_s, k)
+                        mm_s, live, k)
 
     def grid(v):
-        """Back onto the (window, top-t) grid; failing pairs hold 0."""
-        g = torch.zeros(n * top_t, dtype=v.dtype, device=v.device)
+        """Back onto the (window, top-t) grid; failing pairs hold 0, dead
+        slots land in a trailing element that is dropped."""
+        g = torch.zeros(n * top_t + 1, dtype=v.dtype, device=v.device)
         g[sel] = v
-        return g.reshape(n, top_t)
+        return g[:-1].reshape(n, top_t)
 
     n_chains = grid(s["n_chains"])
     has = n_chains > 0
@@ -226,43 +268,54 @@ def _fused_edge_verdict(packed, lens, km_table, gate_min, chain_min,
     verdict = torch.stack([found.to(torch.int32), best_a.to(torch.int32),
                            early.to(torch.int32), late.to(torch.int32)],
                           dim=1)
+    # dead slots add no chain (their n_chains is 0)
     counts_a = torch.zeros(km_table.shape[1], dtype=torch.int32,
                            device=kmers.device).index_add_(
         0, ai_s, s["n_chains"])
-    return verdict, counts_a
+    return verdict, counts_a, n_ok
 
 
 def _fused_enable(packed, lens, km_table, gate_min, chain_min,
-                  a_seeds, a_pos, a_len, k: int, W: int, top_t: int = 8):
+                  a_seeds, a_pos, a_len, k: int, W: int, top_t: int = 8,
+                  pair_budget: int = 0):
     """DetermineAdapters: per-adapter max covered query bases over the
-    batch (ref isNewFullMatch, trim/trim.go:326-352), ``[AP]`` int32."""
+    batch (ref isNewFullMatch, trim/trim.go:326-352), ``[AP]`` int32, and
+    the gate-passing pair count (the chain DP runs over the first
+    ``pair_budget`` of them; collect re-runs over every one above it)."""
     kmers = _unpack_kmers(packed, k, W)
     ei, ai, mm = _gate_topk_pairs(kmers, lens, km_table, gate_min,
                                   chain_min, top_t)
-    _, ei_s, ai_s, mm_s = _passing(ei, ai, mm)
+    _, live, ei_s, ai_s, mm_s, n_ok = _passing(ei, ai, mm, pair_budget)
     _, s = _chain_pairs(kmers, lens, a_seeds, a_pos, a_len, ei_s, ai_s,
-                        mm_s, k)
+                        mm_s, live, k)
+    # dead slots cover nothing (no chain), so they leave the maxima alone
     cov = torch.where(s["n_chains"] > 0, s["ident_cov_q"], 0)
     return torch.zeros(km_table.shape[1], dtype=torch.int32,
                        device=kmers.device).scatter_reduce_(
-        0, ai_s, cov, "amax")
+        0, ai_s, cov, "amax"), n_ok
 
 
 def _fused_window_verdict(packed, lens, km_table, gate_min, chain_min,
                           a_seeds, a_pos, a_len, mid_threshold: int,
-                          k: int, W: int, top_t: int = 8, top_k: int = 4):
+                          k: int, W: int, top_t: int = 8, top_k: int = 4,
+                          pair_budget: int = 0, det_budget: int = 4096):
     """Middle pass: gate + chain + the identity-threshold detection filter
-    (ref findSplit, trim/trim.go:515-591).
+    (ref findSplit, trim/trim.go:515-591), the chain DP over the first
+    ``pair_budget`` gate-passing pairs (all of them with 0).
 
-    Returns ``[n_det, 4]`` int32 rows of (window idx, adapter idx, start
-    offset in window, identity) for every top-``top_k`` chain (by
-    ``cov_q``, ties to the lower anchor) with identity >=
-    ``mid_threshold``, in ascending (pair, chain rank) order."""
+    Returns ``[det_budget + 1, 4]`` int32, the JAX layout: rows of (window
+    idx, adapter idx, start offset in window, identity) for the first
+    ``det_budget`` top-``top_k`` chains (by ``cov_q``, ties to the lower
+    anchor) with identity >= ``mid_threshold``, in ascending (pair, chain
+    rank) order, then rows of (-1, 0, 0, 0); the last row holds (passing
+    pairs (0 unbudgeted), detections, 0, 0), which collect reads to re-run
+    an overflowing batch."""
     kmers = _unpack_kmers(packed, k, W)
     ei, ai, mm = _gate_topk_pairs(kmers, lens, km_table, gate_min,
                                   chain_min, top_t)
-    _, ei, ai, mm = _passing(ei, ai, mm)
-    out, s = _chain_pairs(kmers, lens, a_seeds, a_pos, a_len, ei, ai, mm, k)
+    _, live, ei, ai, mm, n_ok = _passing(ei, ai, mm, pair_budget)
+    out, s = _chain_pairs(kmers, lens, a_seeds, a_pos, a_len, ei, ai, mm,
+                          live, k)
     key = torch.where(s["is_start"], out["cov_q"], -1)
     idx = torch.sort(key, dim=1, descending=True, stable=True).indices
     idx = idx[:, :top_k]
@@ -272,9 +325,21 @@ def _fused_window_verdict(packed, lens, km_table, gate_min, chain_min,
                          rounding_mode="floor")
     det = (take(key) >= 0) & (identity >= mid_threshold)
     start = take(out["start_tp"]) - take(out["start_qp"])
-    pi, ci = torch.nonzero(det, as_tuple=True)
-    return torch.stack([ei[pi], ai[pi], start[pi, ci], identity[pi, ci]],
-                       dim=1).to(torch.int32)
+    n_det = det.sum(dtype=torch.int32)
+    flat = det.reshape(-1)
+    didx, _ = compact_indices(flat, det_budget)
+    dlive = didx < flat.shape[0]
+    pi = torch.div(didx, top_k, rounding_mode="floor").clamp(
+        max=max(0, det.shape[0] - 1))
+    ci = didx % top_k
+    rows = torch.stack([torch.where(dlive, ei[pi], -1),
+                        torch.where(dlive, ai[pi], 0),
+                        torch.where(dlive, start[pi, ci], 0),
+                        torch.where(dlive, identity[pi, ci], 0)], dim=1)
+    n_ok = n_ok if pair_budget else torch.zeros_like(n_det)
+    zero = torch.zeros_like(n_det)
+    tail = torch.stack([n_ok, n_det, zero, zero])[None]
+    return torch.cat([rows.to(torch.int32), tail])
 
 
 def _pack_windows(windows, W: int, k: int):
@@ -304,6 +369,8 @@ class WindowChainEngine:
                  nq: int = 64, mesh=None, device=None):
         self.k = k
         self.nq = nq
+        # re-runs at collect, by verdict and budget
+        self.reruns = Counter()
         # window batches run on the grid's data shards; without a grid,
         # on a 1 x 1 grid of ``device``
         self.mesh = mesh
@@ -370,12 +437,16 @@ class WindowChainEngine:
                             (False, self._back_km, self.back,
                              self._back_bc))}
 
-    def _put(self, a: np.ndarray) -> torch.Tensor:
+    def _put(self, a: np.ndarray, keep: list = None) -> torch.Tensor:
         """A host array as a new tensor on the engine's device (always a
-        copy, so callers may reuse their buffers)."""
-        return torch.tensor(a, device=self.device)
+        copy, so callers may reuse their buffers).  With ``keep`` (a
+        dispatch's list of pinned staging tensors) the copy does not wait
+        for the device (``transfer.upload``)."""
+        if keep is None:
+            return torch.tensor(a, device=self.device)
+        return upload(a, self.device, keep)
 
-    def _pad_mins(self, table, gate_min, chain_min):
+    def _pad_mins(self, table, gate_min, chain_min, keep: list):
         """Thresholds padded to the table's AP columns (padded adapters
         can never pass) on the device, and the real adapter count."""
         A = min(table.shape[1], len(gate_min))
@@ -383,7 +454,7 @@ class WindowChainEngine:
         gm[:A] = gate_min[:A]
         cm = np.ones(table.shape[1], np.int32)
         cm[:A] = chain_min[:A]
-        return self._put(gm), self._put(cm), A
+        return self._put(gm, keep), self._put(cm, keep), A
 
     def _side(self, front: bool, device=None):
         """(k-mer table, (seeds, pos, lengths), barcode flags) of one side,
@@ -400,18 +471,43 @@ class WindowChainEngine:
         return [(lo, p, ln) for _, lo, (p, ln) in
                 self._grid.split_rows([packed_dev, lens_dev], [0, 0])]
 
+    def _pending(self, packed_dev, lens_dev, lo: int, fn, front: bool, gm,
+                 cm, budgets: dict, keep: list, fetch,
+                 barcodes: bool = False, **kw) -> list:
+        """One ``Pending`` per data shard block of an uploaded batch:
+        ``fn`` (a fused verdict, given the side's barcode flags with
+        ``barcodes``) on the block's device and side tables at
+        ``budgets`` (its budget keywords, in the order a re-run passes
+        them); ``lo`` offsets the blocks' first rows."""
+        out = []
+        for blo, p, ln in self._blocks(packed_dev, lens_dev):
+            tab, (a_seeds, a_pos, a_len), is_bc = self._side(front,
+                                                             p.device)
+            side = dict(is_barcode=is_bc) if barcodes else {}
+
+            def run(*args, p=p, ln=ln, tab=tab, a_seeds=a_seeds,
+                    a_pos=a_pos, a_len=a_len, side=side):
+                return fn(p, ln, tab, gm.to(p.device, non_blocking=True),
+                          cm.to(p.device, non_blocking=True), a_seeds,
+                          a_pos, a_len, **side, **kw,
+                          **dict(zip(budgets, args)))
+            out.append(Pending(lo + blo, p.device, run,
+                               tuple(budgets.values()), keep, fetch))
+        return out
+
     # -- per batch ------------------------------------------------------
-    def upload(self, windows, W: int):
+    def upload(self, windows, W: int, keep: list = None):
         """Window batch -> (packed codes, k-mer counts) on the device and
-        the window count."""
+        the window count; with ``keep``, copied without waiting (see
+        ``_put``)."""
         packed, lens = _pack_windows(windows, W, self.k)
-        return self._put(packed), self._put(lens), len(windows)
+        return self._put(packed, keep), self._put(lens, keep), len(windows)
 
     def upload_rows(self, packed_rows: np.ndarray, lens: np.ndarray,
-                    n: int):
+                    n: int, keep: list = None):
         """Ship a caller-prepared packed window batch ([n, CL/4] uint8
         rows + k-mer counts)."""
-        return self._put(packed_rows), self._put(lens), n
+        return self._put(packed_rows, keep), self._put(lens, keep), n
 
     def gate(self, packed_dev, lens_dev, front: bool, n: int,
              W: int) -> np.ndarray:
@@ -427,13 +523,14 @@ class WindowChainEngine:
                        batch: int = 16384):
         """Fused gate + chain (``_fused_match``) per sub-batch of
         ``batch`` windows and data shard; fetch with ``match_collect``."""
+        keep = []
         table = self._side(front)[0]
-        gm, cm, A = self._pad_mins(table, gate_min, chain_min)
+        gm, cm, A = self._pad_mins(table, gate_min, chain_min, keep)
         if A == 0:  # no adapters enabled: no window has matches
             return [(len(windows), None)]
         futures = []
         for lo in range(0, len(windows), batch):
-            km_dev, lens_dev, n = self.upload(windows[lo:lo + batch], W)
+            km_dev, lens_dev, n = self.upload(windows[lo:lo + batch], W, keep)
             blocks = []
             for blo, p, ln in self._blocks(km_dev, lens_dev):
                 tab, (a_seeds, a_pos, a_len), _ = self._side(front, p.device)
@@ -475,38 +572,47 @@ class WindowChainEngine:
 
     def edge_verdict_dispatch(self, windows, front: bool,
                               gate_min: np.ndarray, chain_min: np.ndarray,
-                              W: int, top_t: int = 8, batch: int = 16384):
-        """Edge verdicts of one side per sub-batch and data shard; fetch
-        with ``edge_verdict_collect``."""
+                              W: int, top_t: int = 8, batch: int = 16384,
+                              pair_budget: int = 16384):
+        """Upload edge windows and enqueue the edge verdicts of one side,
+        per sub-batch of ``batch`` windows and data shard, the chain DP
+        over at most ``pair_budget`` gate-passing pairs (0: all); reads
+        nothing back.  Fetch with ``edge_verdict_collect``."""
+        keep = []
         table = self._side(front)[0]
-        gm, cm, A = self._pad_mins(table, gate_min, chain_min)
+        gm, cm, A = self._pad_mins(table, gate_min, chain_min, keep)
         if A == 0:
             return [(len(windows), None)]
         futures = []
         for lo in range(0, len(windows), batch):
-            km_dev, lens_dev, n = self.upload(windows[lo:lo + batch], W)
-            blocks = []
-            for blo, p, ln in self._blocks(km_dev, lens_dev):
-                tab, (a_seeds, a_pos, a_len), is_bc = self._side(front,
-                                                                 p.device)
-                blocks.append((blo, _fused_edge_verdict(
-                    p, ln, tab, gm.to(p.device), cm.to(p.device), a_seeds,
-                    a_pos, a_len, is_bc, self.k, W, top_t=top_t)))
-            futures.append((n, blocks))
+            km_dev, lens_dev, n = self.upload(windows[lo:lo + batch], W, keep)
+            futures.append((n, self._pending(
+                km_dev, lens_dev, 0, _fused_edge_verdict, front, gm, cm,
+                dict(pair_budget=pair_budget), keep, _edge_fetch,
+                barcodes=True, k=self.k, W=W, top_t=top_t)))
         return futures
 
     def edge_verdict_collect(self, futures, num_adapters: int):
         """([n, 4] int32 rows of (found, best_match, earliest, latest),
-        per-adapter chain-count totals [num_adapters])."""
+        per-adapter chain-count totals [num_adapters]).  A block whose
+        gate-passing count exceeds its pair budget re-runs over every
+        passing pair (a budget of the count: what the JAX collect's
+        unbudgeted re-run chains, without the failing pairs' slots)."""
         rows = []
         counts = np.zeros(num_adapters, np.int64)
         for n, blocks in futures:
             if blocks is None:
                 rows.append(np.zeros((n, 4), np.int32))
                 continue
-            parts = self._grid.gather(
-                {lo: (v.cpu().numpy(), c.cpu().numpy())
-                 for lo, (v, c) in blocks})
+            parts = {}
+            for p in blocks:
+                v, c, cnt = p.host.wait()
+                budget, n_ok = p.args[0], int(cnt[0])
+                if budget and n_ok > budget:
+                    self.reruns["edge"] += 1
+                    v, c, cnt = p.rerun(n_ok)
+                parts[p.lo] = (v, c)
+            parts = self._grid.gather(parts)
             rows.append(np.concatenate([v for v, _ in parts])[:n])
             for _, c in parts:
                 counts += c[:num_adapters]
@@ -515,65 +621,110 @@ class WindowChainEngine:
 
     def enable_covs(self, windows, front: bool, gate_min: np.ndarray,
                     chain_min: np.ndarray, W: int, top_t: int = 8,
-                    batch: int = 16384):
+                    batch: int = 16384, pair_budget: int = 16384):
         """DetermineAdapters: per-adapter max covered bases over all
-        windows."""
+        windows.  Every sub-batch is enqueued before the first is
+        collected; one whose gate-passing count exceeds ``pair_budget``
+        re-runs over every passing pair."""
+        keep = []
         table = self._side(front)[0]
-        gm, cm, A = self._pad_mins(table, gate_min, chain_min)
+        gm, cm, A = self._pad_mins(table, gate_min, chain_min, keep)
         if A == 0:
             return np.zeros(0, np.int32)
-        out = np.zeros(table.shape[1], np.int64)
+        blocks = []
         for lo in range(0, len(windows), batch):
-            km_dev, lens_dev, _ = self.upload(windows[lo:lo + batch], W)
-            parts = {}
-            for blo, p, ln in self._blocks(km_dev, lens_dev):
-                tab, (a_seeds, a_pos, a_len), _ = self._side(front, p.device)
-                parts[blo] = _fused_enable(
-                    p, ln, tab, gm.to(p.device), cm.to(p.device), a_seeds,
-                    a_pos, a_len, self.k, W, top_t=top_t).cpu().numpy()
-            for covs in self._grid.gather(parts):
-                out = np.maximum(out, covs)
+            km_dev, lens_dev, _ = self.upload(windows[lo:lo + batch], W, keep)
+            blocks += self._pending(
+                km_dev, lens_dev, lo, _fused_enable, front, gm, cm,
+                dict(pair_budget=pair_budget), keep, _edge_fetch, k=self.k,
+                W=W, top_t=top_t)
+        out = np.zeros(table.shape[1], np.int64)
+        parts = {}
+        for p in blocks:
+            covs, cnt = p.host.wait()
+            n_ok = int(cnt[0])
+            if pair_budget and n_ok > pair_budget:
+                self.reruns["enable"] += 1
+                covs, cnt = p.rerun(n_ok)
+            parts[p.lo] = covs
+        for covs in self._grid.gather(parts):
+            out = np.maximum(out, covs)
         return out[:A]
 
     def window_verdict_dispatch(self, windows, gate_min: np.ndarray,
                                 chain_min: np.ndarray, mid_threshold: int,
-                                W: int, top_t: int = 8, batch: int = 16384):
-        """Upload interior windows + run the detection scan against the
+                                W: int, top_t: int = 8, batch: int = 16384,
+                                pair_budget: int = 0,
+                                det_budget: int = 4096):
+        """Upload interior windows + enqueue the detection scan against the
         front adapters (the middle pass uses only those)."""
-        uploads = [self.upload(windows[lo:lo + batch], W) + (lo,)
+        keep = []
+        uploads = [self.upload(windows[lo:lo + batch], W, keep) + (lo,)
                    for lo in range(0, len(windows), batch)]
         return self.window_verdict_dispatch_packed(
-            uploads, gate_min, chain_min, mid_threshold, W, top_t)
+            uploads, gate_min, chain_min, mid_threshold, W, top_t,
+            pair_budget, det_budget, keep)
 
     def window_verdict_dispatch_packed(self, uploads, gate_min, chain_min,
                                        mid_threshold: int, W: int,
-                                       top_t: int = 8):
+                                       top_t: int = 8, pair_budget: int = 0,
+                                       det_budget: int = 4096,
+                                       keep: list = None):
         """The detection scan over uploaded batches: ``uploads`` is a list
         of (packed_dev, lens_dev, n, lo), ``lo`` the global index of the
-        batch's first window.  One result per batch and data shard,
-        with the global index of the block's first window."""
-        table = self._front_km
-        gm, cm, A = self._pad_mins(table, gate_min, chain_min)
+        batch's first window; ``keep`` holds the uploads' pinned staging
+        tensors until collect.  The chain DP runs over at most
+        ``pair_budget`` gate-passing pairs (0: all) and at most
+        ``det_budget`` detections come back a block.  Reads nothing back:
+        one ``Pending`` per batch and data shard, its ``lo`` the global
+        index of the block's first window."""
+        keep = [] if keep is None else keep
+        gm, cm, A = self._pad_mins(self._front_km, gate_min, chain_min,
+                                   keep)
         if A == 0:
-            return [(0, None)]
+            return []
         futures = []
         for km_dev, lens_dev, _, lo in uploads:
-            for blo, p, ln in self._blocks(km_dev, lens_dev):
-                tab, (a_seeds, a_pos, a_len), _ = self._side(True, p.device)
-                futures.append((lo + blo, _fused_window_verdict(
-                    p, ln, tab, gm.to(p.device), cm.to(p.device), a_seeds,
-                    a_pos, a_len, mid_threshold, self.k, W, top_t=top_t)))
+            futures += self._pending(
+                km_dev, lens_dev, lo, _fused_window_verdict, True, gm, cm,
+                dict(pair_budget=pair_budget, det_budget=det_budget), keep,
+                _window_fetch, mid_threshold=mid_threshold, k=self.k, W=W,
+                top_t=top_t)
         return futures
 
     def window_verdict_collect(self, futures):
         """Window detections: [(window idx, adapter idx, start,
-        identity)] int32 rows, window indices global across batches."""
+        identity)] int32 rows, window indices global across batches.  As
+        the JAX collect: a block over its pair budget re-runs over every
+        passing pair (its count as the budget: the pairs the JAX
+        unbudgeted re-run chains that can detect anything); one whose
+        detections overflow ``det_budget`` re-runs so at ``4 *
+        det_budget`` and keeps that run's first rows."""
         parts = {}
-        for lo, fut in futures:
-            if fut is None:
-                continue
-            rows = fut.cpu().numpy()
-            rows[:, 0] += lo
-            parts[lo] = rows
+        for p in futures:
+            pair_budget, det_budget = p.args
+            (arr,) = p.host.wait()
+            n_ok = int(arr[-1, 0])      # 0 when the block ran unbudgeted
+            if pair_budget and n_ok > pair_budget:
+                self.reruns["middle_pair_budget"] += 1
+                (arr,) = p.rerun(n_ok, det_budget)
+            if int(arr[-1, 1]) > arr.shape[0] - 1:
+                self.reruns["middle_det_budget"] += 1
+                (arr,) = p.rerun(n_ok, 4 * det_budget)
+            rows = arr[:-1]
+            rows = rows[rows[:, 0] >= 0]
+            rows[:, 0] += p.lo
+            parts[p.lo] = rows
         out = [r for r in self._grid.gather(parts) if r.size]
         return np.concatenate(out) if out else np.zeros((0, 4), np.int32)
+
+
+def _edge_fetch(res) -> HostCopy:
+    """Host copy of an edge verdict ``(verdict, counts, n_ok)`` or a
+    DetermineAdapters ``(covs, n_ok)``."""
+    return HostCopy(list(res[:-1]) + [res[-1].reshape(1)])
+
+
+def _window_fetch(res) -> HostCopy:
+    """Host copy of a middle-pass detection block."""
+    return HostCopy([res])

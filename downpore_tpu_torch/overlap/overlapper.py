@@ -10,13 +10,20 @@ Device mapping: the port's ``MapEngine`` on an explicit ``device`` runs
 candidate retrieval, the distinct-seed popcount gate and the anchor chain
 DP with the seedAligner gap window (ref: seeds/alignment.go:411-424, the
 lean forward kernel) over the whole query set, returning full chains via
-backpointers.  The engine selects every passing pair, so no cross-round
-shape plan or pair budget is kept.  With a device grid (``mesh``) the
+backpointers.  Its dispatches run at a pair budget; the job's
+``shape_plan`` (one dict for every round of a job, as in the JAX
+overlapper) keeps the budget the engine's collects have seen a need for,
+so later rounds dispatch right-sized.  The JAX overlapper peeks at the
+first sub-batch's count in its first round before dispatching the rest;
+here that read happens at collect: the first round's later sub-batches
+are dispatched once the first is collected.  With a device grid
+(``mesh``) the
 engine splits the query batches over the grid's data shards and, with a
 seed axis, shards the chunk index's hash-bucket rows.
 """
 from __future__ import annotations
 
+import functools
 import sys
 from typing import Iterable, List
 
@@ -37,6 +44,19 @@ QUERY_ALL = 4
 WEIGHT_EDGES = 8
 
 
+def _in_order(subs):
+    """``(first query, pending result)`` of each sub-batch of a
+    ``dispatch_find`` result, in order.  A deferred sub-batch (a call that
+    dispatches it) is dispatched, with every deferred one after it, when
+    the collect reaches it: by then the first sub-batch's passing count is
+    in the job plan, and they run at its budget."""
+    for i, (lo, futs) in enumerate(subs):
+        if callable(futs):
+            subs[i:] = [(l, f() if callable(f) else f) for l, f in subs[i:]]
+            futs = subs[i][1]
+        yield lo, futs
+
+
 class SeedQuery:
     """(ref: overlap/overlap.go:10-16)"""
     __slots__ = ("id", "sequence_id", "query", "at_start", "rc")
@@ -53,7 +73,7 @@ class SeedQuery:
 class Overlapper:
     def __init__(self, index: SeedIndex, chunk_size: int, overlap: int,
                  min_seeds: int, hit_fraction: float, mesh=None,
-                 device=None):
+                 device=None, shape_plan: dict = None):
         # optional DeviceGrid: query batches split over its data shards
         self.mesh = mesh
         self.device = mesh.home if mesh is not None \
@@ -63,6 +83,8 @@ class Overlapper:
         self.overlap = overlap
         self.min_seeds = min_seeds
         self.hit_fraction = hit_fraction
+        # the job's plan: the pair budget its rounds have needed
+        self.shape_plan = shape_plan if shape_plan is not None else {}
 
     # -- query preparation ---------------------------------------------
     def _query_subsequences(self, seqs: Iterable[Sequence], query_type: int,
@@ -262,7 +284,9 @@ class Overlapper:
     def dispatch_find(self, queries: List[SeedQuery]):
         """Async half of ``find_overlaps``: build the round's engine on
         ``self.device`` and run the fused overlap pipeline over the
-        queries in ``SUB``-query batches against the one resident engine;
+        queries in ``SUB``-query batches against the one resident engine,
+        reading nothing back (in a job's first round only the first batch
+        is enqueued: the rest wait for its count, see ``_in_order``);
         returns ``(engine, [(first query, result), ...])`` for
         ``collect_find``, or None for an empty round.  The caller may do
         host work (the next round's query prep) before collecting."""
@@ -290,9 +314,14 @@ class Overlapper:
              for q in queries], np.int32)
         subs = []
         for lo in range(0, len(queries), SUB):
-            sq = queries[lo : lo + SUB]
-            subs.append((lo, eng.dispatch_chains(
-                [q.query for q in sq], base_min[lo : lo + SUB])))
+            run = functools.partial(
+                eng.dispatch_chains, [q.query for q in queries[lo:lo + SUB]],
+                base_min[lo:lo + SUB], shape_plan=self.shape_plan)
+            # the job's first round: the sub-batches after the first wait
+            # for its passing count (the JAX overlapper's round-0 budget
+            # peek), read at its collect, not here
+            deferred = subs and "budget" not in self.shape_plan
+            subs.append((lo, run if deferred else run()))
         return eng, subs
 
     def collect_find_arrays(self, queries: List[SeedQuery], futs):
@@ -313,7 +342,7 @@ class Overlapper:
             return None
         eng, subs = futs
         heads, cqs, cts = [], [], []
-        for lo, chain_futs in subs:
+        for lo, chain_futs in _in_order(subs):
             M, head, cq, ct = eng.collect_chains_raw(chain_futs)
             live = (head[:, 0] >= 0) & (head[:, 0] < M) & (head[:, 2] > 0)
             head = head[live].astype(np.int64)
@@ -383,7 +412,7 @@ class Overlapper:
             return []
         eng, subs = futs
         results: List[SeedMatch] = []
-        for lo, chain_futs in subs:
+        for lo, chain_futs in _in_order(subs):
             per_meta = eng.collect_chains(chain_futs)
             for qi, meta in enumerate(per_meta):
                 q = queries[lo + qi]

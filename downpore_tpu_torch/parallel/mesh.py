@@ -39,6 +39,7 @@ import torch
 from .. import resolve_device
 from ..ops.chain import chain_batch
 from ..ops.match import hit_counts
+from ..ops.transfer import upload
 
 
 def _distributed() -> bool:
@@ -130,12 +131,18 @@ class DeviceGrid:
     def data_device(self, d: int) -> torch.device:
         return self.devices[d, 0]
 
-    def split_rows(self, arrays: Sequence, fills: Sequence):
+    def split_rows(self, arrays: Sequence, fills: Sequence,
+                   keep: list = None):
         """Split each array's rows (numpy arrays or tensors, one row count)
         into ``n_data`` contiguous, equal blocks, the last ones padded with
         the array's fill value.  Returns ``[(d, lo, [block, ...])]`` over
         the data shards ``d`` this process owns, each block on its shard's
-        device, ``lo`` the global index of the block's first row."""
+        device, ``lo`` the global index of the block's first row.  Host
+        arrays are uploaded without waiting for the devices (``upload``;
+        their pinned staging tensors go into ``keep``, which the caller
+        holds until the blocks' results are collected), device tensors
+        copied with ``non_blocking=True``."""
+        keep = [] if keep is None else keep
         R = arrays[0].shape[0]
         D = self.shape["data"]
         B = max(1, -(-R // D))
@@ -145,7 +152,7 @@ class DeviceGrid:
                 continue
             dev = self.data_device(d)
             lo = d * B
-            out.append((d, lo, [_to(_rows(a, lo, lo + B, f), dev)
+            out.append((d, lo, [_to(_rows(a, lo, lo + B, f), dev, keep)
                                 for a, f in zip(arrays, fills)]))
         return out
 
@@ -180,10 +187,14 @@ def _rows(a, lo: int, hi: int, fill):
     return np.concatenate([part, np.full(shape, fill, a.dtype)])
 
 
-def _to(a, dev):
-    if torch.is_tensor(a):
-        return a.to(dev)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+def _to(a, dev, keep: list = None):
+    """``a`` on ``dev``: a tensor already there as it is, one on another
+    card by a device copy, host data by ``upload``."""
+    if torch.is_tensor(a) and a.device == dev:
+        return a
+    if torch.is_tensor(a) and a.device.type != "cpu":
+        return a.to(dev, non_blocking=True)
+    return upload(a, dev, [] if keep is None else keep)
 
 
 def make_mesh(n_data: int = None, n_seed: int = 1,

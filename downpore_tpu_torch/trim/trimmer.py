@@ -19,7 +19,10 @@ requirements) follows the reference exactly, as the JAX trimmer does.
 Dropped from the JAX trimmer: its helpers that nothing calls
 (``_match_edges``, ``_edge_dispatch``, ``_dispatch_windows``,
 ``_collect_windows``, ``_match_windows``, ``_window_detections``), batch
-buckets, the middle pass's rotating staging buffers and its pair budget.
+buckets and the middle pass's rotating staging buffers.  The engine's
+budgets are the JAX trimmer's: 16,384 gate-passing pairs an edge batch,
+one for every 4 windows (at least 4,096) and 4,096 detections a middle
+batch.
 With a device grid (``mesh``) every window batch splits over the grid's
 data shards.
 """
@@ -499,10 +502,15 @@ class _MidStream:
             nb = min(-(-n // D) * D, self.window_batch)
             self.rows[n:nb] = 0
             self.lens[n:nb] = 0
-        up = self.eng.upload_rows(self.rows[:nb], self.lens[:nb], n)
+        keep = []
+        up = self.eng.upload_rows(self.rows[:nb], self.lens[:nb], n, keep)
+        # budget the chain DP to 1 gate-passing pair per 4 windows (the
+        # chain_min gate rejects almost all interior windows; collect
+        # re-runs an overflowing batch over every passing pair)
         futs = self.eng.window_verdict_dispatch_packed(
             [up + (0,)], self.min_matches, self.min_matches,
-            self.t.mid_threshold, self.W)
+            self.t.mid_threshold, self.W, pair_budget=max(4096, nb // 4),
+            keep=keep)
         m = self.metas
         ms = m[0] if len(m) == 1 else tuple(
             np.concatenate([c[i] for c in m]) for i in range(3))

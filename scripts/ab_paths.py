@@ -21,9 +21,16 @@ end, and the chain DP through each tree's own entry points:
   A time is that of the whole call on the card (CUDA events over 20 calls,
   the smaller of two), so a call whose host time exceeds its device time
   shows it; a digest of the scores holds the trees' outputs equal;
-* the tree's ``phase_slice`` (map, 4.6 Mb), ``phase_overlap`` and
-  ``phase_trim``, whose own checks must pass and whose logs give the
-  end-to-end numbers (map bases/s, overlap and trim wall seconds).
+* the tree's ``phase_slice`` (map, 4.6 Mb) and ``phase_profile`` (one
+  profiled pass: device busy time and idle share, host waits in
+  ``cudaStreamSynchronize``), one map dispatch of the 4.6 Mb case timed
+  the same way for both trees (``map_dispatch``: its host wall time
+  beside the device span of the work it enqueued), and the tree's
+  ``phase_chromosome`` (map, 64 Mb, with its profiled pass),
+  ``phase_overlap`` (round 2 profiled) and ``phase_trim`` (an edge and a
+  middle batch profiled), whose own checks must pass and whose logs give
+  the end-to-end numbers (map bases/s and medians, overlap and trim wall
+  seconds, idle shares).
 
 ``--cases beam``: the beam-consensus kernel.  First this script's own tree
 runs ``correct`` on the card on ``chip_smoke.correct_case()`` (2048 reads
@@ -69,14 +76,43 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K = 10
+_PROFILED = (r"^profiled unsharded pass: wall ([\d.]+) ms; device busy "
+             r"([\d.]+) ms \(\d+ device events\), idle share ([\d.]+); "
+             r"\d+ cudaLaunchKernel; host waits in cudaStreamSynchronize "
+             r"([\d.]+) ms")
 METRICS = (
-    # (key, regex over a turn's log, group)
+    # (key, regex over a turn's log, group, which match: phase_profile runs
+    # for map 4.6 Mb first, then inside phase_chromosome for 64 Mb)
     ("map_bases_per_s",
-     r"^map_batch, \d+ passes: .*?median [\d.]+ s = .*?, (\d+) bases/s", 1),
-    ("map_median_s", r"^map_batch, \d+ passes: .*?median ([\d.]+) s", 1),
-    ("overlap_wall_s", r"^overlap on the card: wall ([\d.]+) s", 1),
-    ("trim_wall_s", r"^trim on the card: wall ([\d.]+) s", 1),
-    ("trim_mb_per_s", r"^trim on the card: wall [\d.]+ s = ([\d.]+) MB/s", 1),
+     r"^map_batch, \d+ passes: .*?median [\d.]+ s = .*?, (\d+) bases/s", 1,
+     0),
+    ("map_median_s", r"^map_batch, \d+ passes: .*?median ([\d.]+) s", 1, 0),
+    ("map_profiled_wall_ms", _PROFILED, 1, 0),
+    ("map_device_busy_ms", _PROFILED, 2, 0),
+    ("map_idle_share", _PROFILED, 3, 0),
+    ("map_stream_sync_ms", _PROFILED, 4, 0),
+    ("map_dispatch_ms", r"^AB map dispatch: host ([\d.]+) ms", 1, 0),
+    ("map_dispatch_span_ms",
+     r"^AB map dispatch: host [\d.]+ ms, device span ([\d.]+) ms", 1, 0),
+    ("chr_median_s", r"^chromosome map_batch, \d+ passes: .*?median "
+     r"([\d.]+) s", 1, 0),
+    ("chr_profiled_wall_ms", _PROFILED, 1, 1),
+    ("chr_device_busy_ms", _PROFILED, 2, 1),
+    ("chr_idle_share", _PROFILED, 3, 1),
+    ("chr_stream_sync_ms", _PROFILED, 4, 1),
+    ("overlap_wall_s", r"^overlap on the card: wall ([\d.]+) s", 1, 0),
+    ("overlap_round2_idle_share",
+     r"^overlap round 2 .*?under torch\.profiler: .*?idle share ([\d.]+)",
+     1, 0),
+    ("trim_wall_s", r"^trim on the card: wall ([\d.]+) s", 1, 0),
+    ("trim_mb_per_s", r"^trim on the card: wall [\d.]+ s = ([\d.]+) MB/s",
+     1, 0),
+    ("trim_edge_idle_share",
+     r"^trim edge batch under torch\.profiler: .*?idle share ([\d.]+)", 1,
+     0),
+    ("trim_middle_idle_share",
+     r"^trim middle batch under torch\.profiler: .*?idle share ([\d.]+)",
+     1, 0),
 )
 BEAM_KERNEL = "beam_consensus_kernel"
 TURN_TIMEOUT = 1200    # seconds a turn may take
@@ -146,15 +182,57 @@ def chain_times(recipe) -> dict:
     return out
 
 
+def map_dispatch(mapper, reads) -> None:
+    """One dispatch of the map case's first 4,096 end windows through the
+    tree's ``dispatch_packed``: its host wall time and the device span from
+    a CUDA event before it to one after it (the smaller of three), then
+    its collect.  A dispatch that waits on the card takes about its whole
+    span; one that only enqueues takes its launches."""
+    import numpy as np
+    import torch
+    eng = mapper.engine
+    es = mapper.edge_size
+    wins = []
+    for r in reads[:2048]:
+        wins += [r.subsequence(0, es), r.subsequence(len(r) - es, len(r))]
+    packed = eng.pack_query_windows(wins)
+    base_min = np.maximum(5, packed[6] // 5).astype(np.int32)
+    eng.collect_arrays_many([eng.dispatch_packed(packed, base_min)])
+    best = None
+    for _ in range(3):
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        t0 = time.perf_counter()
+        futs = eng.dispatch_packed(packed, base_min)
+        host = (time.perf_counter() - t0) * 1e3
+        e1.record()
+        e1.synchronize()
+        eng.collect_arrays_many([futs])
+        if best is None or host < best[0]:
+            best = (host, e0.elapsed_time(e1))
+    print(f"AB map dispatch: host {best[0]:.3f} ms, device span "
+          f"{best[1]:.3f} ms", flush=True)
+
+
 def paths_turn(tree: str, recipe) -> dict:
-    """The chain DP and the three phases of ``tree``."""
+    """The chain DP and the map, chromosome, overlap and trim phases of
+    ``tree``."""
     import torch
     import chip_smoke as smoke
     if not smoke.__file__.startswith(tree):
         raise SystemExit(f"imported {smoke.__file__}, not {tree}'s")
     dev = torch.device("cuda")
     result = {"chain": chain_times(recipe), "phase_s": {}}
-    for name in ("phase_slice", "phase_overlap", "phase_trim"):
+    t0 = time.perf_counter()
+    mapper, reads, _ = smoke.phase_slice(dev)
+    smoke.phase_profile(mapper, reads)
+    map_dispatch(mapper, reads)
+    del mapper, reads
+    result["phase_s"]["phase_slice"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    for name in ("phase_chromosome", "phase_overlap", "phase_trim"):
         t0 = time.perf_counter()
         got = getattr(smoke, name)(dev)
         del got
@@ -164,7 +242,7 @@ def paths_turn(tree: str, recipe) -> dict:
 
 
 def paths_summary(recs, trees, summary) -> None:
-    for key, _, _ in METRICS:
+    for key, *_ in METRICS:
         for label in trees:
             vals = [r[key] for r in recs if r["tree"] == label]
             summary["range"][f"{key} {label}"] = [min(vals), max(vals)]
@@ -397,12 +475,12 @@ def run_turn(tree: str, label: str, i: int, cases: str) -> dict:
                          f"see {log_path}:\n{text[-3000:]}")
     rec = {"turn": i, "tree": label, "seconds": time.perf_counter() - t0}
     if cases == "paths":
-        for key, pat, g in METRICS:
-            m = re.search(pat, text, re.M)
-            if m is None:
+        for key, pat, g, which in METRICS:
+            found = list(re.finditer(pat, text, re.M))
+            if len(found) <= which:
                 raise SystemExit(f"turn {i} ({label}): no {key} in "
                                  f"{log_path}")
-            rec[key] = float(m.group(g))
+            rec[key] = float(found[which].group(g))
     rec.update(json.loads(re.search(r"^AB_RESULT (.*)$", text,
                                     re.M).group(1)))
     return rec

@@ -247,12 +247,15 @@ def test_summarize_dp_matches_jax_with_ties(lean):
 
 @pytest.mark.parametrize("density", [0.0, 0.05, 0.5])
 def test_compact_indices_matches_jax(density):
+    """The first ``size`` set indices, padded with the mask's length, and
+    the total count as a 0-d tensor: at a size above the count and at one
+    that truncates it."""
     rng = np.random.default_rng(17)
     mask = rng.random(3000) < density
     n_set = int(mask.sum())
-    ref_idx, ref_n = jchain.compact_indices(mask, n_set + 7)
-    got_idx, got_n = tchain.compact_indices(_t(mask))
-    assert got_n == int(ref_n) == n_set
-    np.testing.assert_array_equal(np.asarray(ref_idx)[:n_set],
-                                  got_idx.numpy())
+    for size in (n_set + 7, n_set // 2 + 1):
+        ref_idx, ref_n = jchain.compact_indices(mask, size)
+        got_idx, got_n = tchain.compact_indices(_t(mask), size)
+        assert got_n.dim() == 0 and int(got_n) == int(ref_n) == n_set
+        np.testing.assert_array_equal(np.asarray(ref_idx), got_idx.numpy())
     assert (np.asarray(ref_idx)[n_set:] == mask.size).all()

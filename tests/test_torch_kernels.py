@@ -9,6 +9,7 @@ marked ``cuda`` skip without a card.  Kernel and plain version must agree
 exactly (tolerance 0: integer DP and float32 votes computed in one
 order).
 """
+import contextlib
 import os
 
 import numpy as np
@@ -776,3 +777,147 @@ def test_chain_batch_on_card_matches_cpu(cuda_device):
     assert int(ref["overflow"].max()) > 0
     for key in ref:
         assert torch.equal(got[key].cpu(), ref[key]), key
+
+
+# -- the dispatch / collect contract on the card ------------------------------
+@contextlib.contextmanager
+def sync_errors():
+    """Any call that waits for the card raises while the block runs."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def random_genome(rng, n):
+    from downpore_tpu_torch.core import Sequence
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    return Sequence.from_string(bases[rng.integers(0, 4, n)].tobytes()
+                                .decode(), id=0, name="chr")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["flat", "binned", "seed_sharded"])
+def test_map_dispatch_does_not_wait_on_card(cuda_device, monkeypatch, case):
+    """A map dispatch (after one warm dispatch) enqueues and returns under
+    ``set_sync_debug_mode("error")``, at a budget of 4 pairs; its collect
+    re-runs and equals the CPU engine's rows."""
+    from downpore_tpu_torch.mapping import Mapper
+    from downpore_tpu_torch.ops import map_engine
+    from downpore_tpu_torch.parallel import make_mesh
+    from downpore_tpu_torch.utils import kmer_occurrences, score_seed_values
+
+    if case == "binned":
+        monkeypatch.setattr(map_engine, "_BINNED_MIN_C", 16)
+        monkeypatch.setattr(map_engine, "_BINNED_CB", 8)
+    rng = np.random.default_rng(33)
+    genome = random_genome(rng, 120_000)
+    values = score_seed_values(kmer_occurrences([genome], 11), 11)
+    args = (genome, False, 11, values, 40, 1000, 2000)
+    windows = []
+    for _ in range(32):
+        p = int(rng.integers(0, 115_000))
+        windows.append(genome.subsequence(p, p + 1000))
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        eng = Mapper(*args, device=dev).engine
+        if case == "seed_sharded":
+            eng = map_engine.MapEngine(eng.index, 11, nq=64, nt=eng.nt,
+                                       lean=True,
+                                       mesh=make_mesh(1, 2, [dev] * 2))
+        assert eng._binned == (case == "binned")
+        packed = eng.pack_query_windows(windows)
+        base_min = np.maximum(5, packed[6] // 5).astype(np.int32)
+        eng.collect_arrays_many([eng.dispatch_packed(packed, base_min)])
+        eng.reruns.clear()
+        with (sync_errors() if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            futs = eng.dispatch_packed(packed, base_min, pair_budget=4)
+        out.append(eng.collect_arrays_many([futs])[0])
+        assert eng.reruns and sum(eng.reruns.values()) >= 1
+    (h_g, p_g), (h_c, p_c) = out
+    assert h_g.shape[0] >= 32
+    np.testing.assert_array_equal(h_g, h_c)
+    np.testing.assert_array_equal(p_g, p_c)
+
+
+@pytest.mark.cuda
+def test_overlap_dispatch_does_not_wait_on_card(cuda_device):
+    """An overlap engine's sub-batch dispatch at a budget of 4 pairs under
+    ``set_sync_debug_mode("error")``; collect equals the CPU engine's."""
+    from downpore_tpu_torch.core import Sequence
+    from downpore_tpu_torch.overlap import QUERY_EDGES, Overlapper
+    from downpore_tpu_torch.ops.map_engine import MapEngine
+    from downpore_tpu_torch.seeds import SeedIndex
+    from downpore_tpu_torch.utils import kmer_occurrences, score_seed_values
+
+    rng = np.random.default_rng(34)
+    genome = random_genome(rng, 60_000)
+    reads = []
+    for i in range(40):
+        p = int(rng.integers(0, 54_000))
+        codes = genome.codes[p:p + 6000].copy()
+        m = rng.random(len(codes)) < 0.03
+        codes[m] = (codes[m] + rng.integers(1, 4, int(m.sum()))) % 4
+        reads.append(Sequence(codes, id=i, name=f"r{i}"))
+    values = score_seed_values(kmer_occurrences(reads, 10), 10)
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        ov = Overlapper(SeedIndex(10), 10000, 1000, 10, 0.25, device=dev)
+        queries = ov.prepare_queries(15, 10000, values, iter(reads[:16]),
+                                     QUERY_EDGES)
+        ov.add_sequences(iter(reads))
+        ov.index.index_sequences()
+        eng = MapEngine(ov.index, 10, nq=128, nt=256, device=dev)
+        sq = [q.query for q in queries]
+        base_min = np.array([int(0.25 * q.num_seeds + 0.5) for q in sq],
+                            np.int32)
+        eng.collect_chains(eng.dispatch_chains(sq, base_min))
+        with (sync_errors() if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            futs = eng.dispatch_chains(sq, base_min, pair_budget=4)
+        out.append(eng.collect_chains(futs))
+        assert eng.reruns["pair_budget"] == 1
+    assert out[0] == out[1] and sum(len(r) for r in out[0]) >= 20
+
+
+@pytest.mark.cuda
+def test_trim_dispatch_does_not_wait_on_card(cuda_device):
+    """The edge verdict (at 8 pairs) and the middle-pass upload and
+    dispatch (at 8 pairs and 2 detections) under
+    ``set_sync_debug_mode("error")``; their collects re-run and equal the
+    CPU engine's."""
+    from downpore_tpu_torch.ops import window_engine as we
+    from downpore_tpu_torch.trim import FRONT_ADAPTERS, load_trimmer
+
+    rng = np.random.default_rng(35)
+    fronts = trim_windows(rng, 256, 150, FRONT_ADAPTERS)
+    mids = trim_windows(rng, 128, 512, FRONT_ADAPTERS)
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        t = load_trimmer("", "", 6, verbosity=0, device=dev)
+        eng = t._engine()
+        W = t.WINDOW - t.k + 1
+        gm, cm = t._edge_mins(t.front_sets)
+        mm = t._mid_min_matches()
+        p, lens = we._pack_windows(mids, 512 - t.k + 1, t.k)
+        eng.edge_verdict_collect(eng.edge_verdict_dispatch(
+            fronts, True, gm, cm, W), len(gm))
+        with (sync_errors() if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            edge = eng.edge_verdict_dispatch(fronts, True, gm, cm, W,
+                                             pair_budget=8)
+            keep = []
+            mid = eng.window_verdict_dispatch_packed(
+                [eng.upload_rows(p, lens, len(mids), keep) + (0,)], mm, mm,
+                t.mid_threshold, 512 - t.k + 1, pair_budget=8,
+                det_budget=2, keep=keep)
+        out.append((eng.edge_verdict_collect(edge, len(gm)),
+                    eng.window_verdict_collect(mid)))
+        assert eng.reruns["edge"] == 1 and eng.reruns["middle_det_budget"]
+    ((v_g, c_g), d_g), ((v_c, c_c), d_c) = out
+    np.testing.assert_array_equal(v_g, v_c)
+    np.testing.assert_array_equal(c_g, c_c)
+    np.testing.assert_array_equal(d_g, d_c)
+    assert v_g[:, 0].sum() >= 50 and len(d_g) == 8

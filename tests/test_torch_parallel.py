@@ -329,8 +329,8 @@ def test_data_parallel_work_balance(map_case):
     recorded = []
     orig = g.split_rows
 
-    def rec(arrays, fills):
-        out = orig(arrays, fills)
+    def rec(*args, **kwargs):
+        out = orig(*args, **kwargs)
         recorded.append(out)
         return out
 

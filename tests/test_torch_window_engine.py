@@ -237,7 +237,7 @@ def test_fused_match_matches_both_jax_forms(engines, edge_batch):
 @pytest.fixture(scope="module")
 def edge_verdicts(engines, edge_batch):
     """JAX edge verdicts, unbudgeted and compacted to a budget that holds
-    every passing pair, and the port's."""
+    every passing pair, and the port's in both forms."""
     _, jeng, _, teng = engines
     b = edge_batch
     jargs = (jnp.asarray(b["packed"]), jnp.asarray(b["lens"]),
@@ -246,19 +246,23 @@ def edge_verdicts(engines, edge_batch):
     full = [np.asarray(x) for x in jwe._fused_edge_verdict(*jargs, **kw)]
     budgeted = [np.asarray(x) for x in jwe._fused_edge_verdict(
         *jargs, pair_budget=2048, **kw)]
-    got = twe._fused_edge_verdict(t(b["packed"]), t(b["lens"]),
-                                  *side(teng)[:1], t(b["gm"]), t(b["cm"]),
-                                  *side(teng)[1:], K, EDGE_W, top_t=8)
-    return full, budgeted, [x.numpy() for x in got]
+    got = [[x.numpy() for x in twe._fused_edge_verdict(
+        t(b["packed"]), t(b["lens"]), *side(teng)[:1], t(b["gm"]),
+        t(b["cm"]), *side(teng)[1:], K, EDGE_W, top_t=8, pair_budget=pb)]
+        for pb in (0, 2048)]
+    return full, budgeted, got
 
 
 def test_fused_edge_verdict_matches(edge_verdicts):
-    (v, c, n_ok), (bv, bc, bn_ok), (tv, tc) = edge_verdicts
+    (v, c, n_ok), (bv, bc, bn_ok), ((tv, tc, tn), (tbv, tbc, tbn)) = \
+        edge_verdicts
     np.testing.assert_array_equal(v, tv)
     np.testing.assert_array_equal(c, tc)
-    assert int(n_ok) == int(bn_ok) <= 2048
+    assert int(n_ok) == int(bn_ok) == int(tn) == int(tbn) <= 2048
     np.testing.assert_array_equal(bv, tv)
     np.testing.assert_array_equal(bc, tc)
+    np.testing.assert_array_equal(bv, tbv)
+    np.testing.assert_array_equal(bc, tbc)
     # windows found adapters, some as barcodes, and counts landed only
     # on real adapter columns
     assert v[:, 0].sum() >= 30
@@ -304,10 +308,12 @@ def test_fused_enable_matches(engines, edge_batch):
     jargs = (jnp.asarray(b["packed"]), jnp.asarray(b["lens"]),
              np_side(jeng)[0], jgm, jcm, *np_side(jeng)[1:4])
     kw = dict(k=K, W=EDGE_W, max_anchors=128, top_t=8)
-    covs, _ = jwe._fused_enable(*jargs, **kw)
-    got = twe._fused_enable(t(b["packed"]), t(b["lens"]), teng._front_km,
-                            t(jgm), t(jcm), *teng.front, K, EDGE_W, top_t=8)
+    covs, n_ok = jwe._fused_enable(*jargs, **kw)
+    got, got_n = twe._fused_enable(t(b["packed"]), t(b["lens"]),
+                                   teng._front_km, t(jgm), t(jcm),
+                                   *teng.front, K, EDGE_W, top_t=8)
     np.testing.assert_array_equal(np.asarray(covs), got.numpy())
+    assert int(got_n) == int(n_ok) > 0
     assert int(got.max()) >= 20 and int(got[12]) == 0
 
 
@@ -324,24 +330,33 @@ def mid_batch(engines):
     full = np.asarray(jwe._fused_window_verdict(*jargs, **kw))
     budgeted = np.asarray(jwe._fused_window_verdict(*jargs, pair_budget=256,
                                                     **kw))
-    got = twe._fused_window_verdict(t(p), t(l), teng._front_km, t(gm),
-                                    t(cm), *teng.front, tt.mid_threshold,
-                                    K, MID_W, top_t=8).numpy()
+    got = [twe._fused_window_verdict(t(p), t(l), teng._front_km, t(gm),
+                                     t(cm), *teng.front, tt.mid_threshold,
+                                     K, MID_W, top_t=8,
+                                     pair_budget=pb).numpy()
+           for pb in (0, 256)]
     return full, budgeted, got
 
 
+def detection_rows(arr):
+    """The detection rows of a ``[det_budget + 1, 4]`` verdict block."""
+    return arr[:-1][arr[:-1, 0] >= 0]
+
+
 def test_fused_window_verdict_rows_in_order(mid_batch):
-    full, budgeted, got = mid_batch
+    """Both forms in the JAX layout, the trailing (passing pairs,
+    detections) row included."""
+    full, budgeted, (got, got_b) = mid_batch
     n_det = int(full[-1, 1])
-    rows = full[:-1][full[:-1, 0] >= 0]
+    rows = detection_rows(full)
     assert len(rows) == n_det >= 20
-    assert got.dtype == np.int32
-    np.testing.assert_array_equal(rows, got)
-    assert int(budgeted[-1, 0]) <= 256
-    brows = budgeted[:-1][budgeted[:-1, 0] >= 0]
-    np.testing.assert_array_equal(brows, got)
+    assert got.dtype == np.int32 and got.shape == full.shape
+    np.testing.assert_array_equal(full, got)
+    assert 0 < int(budgeted[-1, 0]) <= 256
+    np.testing.assert_array_equal(budgeted, got_b)
+    np.testing.assert_array_equal(detection_rows(budgeted), rows)
     # several adapters of one window detected, in (pair, rank) order
-    assert len(np.unique(got[:, 0])) < len(got)
+    assert len(np.unique(rows[:, 0])) < len(rows)
 
 
 # -- engine entry points ---------------------------------------------------
@@ -349,15 +364,16 @@ def _edges_both(jeng, teng, wins, front, gm, cm, budget):
     ref = jeng.edge_verdict_collect(jeng.edge_verdict_dispatch(
         wins, front, gm, cm, EDGE_W, pair_budget=budget), len(gm))
     got = teng.edge_verdict_collect(teng.edge_verdict_dispatch(
-        wins, front, gm, cm, EDGE_W), len(gm))
+        wins, front, gm, cm, EDGE_W, pair_budget=budget), len(gm))
     return ref, got
 
 
 def test_engine_budget_overflow_reruns_match(engines, edge_batch,
                                              mid_batch):
-    """More gate-passing pairs than the JAX budgets: the JAX engine re-runs
-    each batch unbudgeted; the port has no budget.  Same results."""
+    """More gate-passing pairs than the budgets (8): both engines re-run
+    each batch unbudgeted at collect.  Same results."""
     jt, jeng, tt, teng = engines
+    teng.reruns.clear()
     wins = edge_batch["wins"]
     gm, cm = edge_mins(jt)
     (rv, rc), (gv, gc) = _edges_both(jeng, teng, wins, True, gm, cm, 8)
@@ -366,15 +382,17 @@ def test_engine_budget_overflow_reruns_match(engines, edge_batch,
     mh = np.maximum(np.array([len(s) // 2 for s in jt.front_sets]), 1)
     np.testing.assert_array_equal(
         jeng.enable_covs(wins, True, mh, mh, EDGE_W, pair_budget=8),
-        teng.enable_covs(wins, True, mh, mh, EDGE_W))
+        teng.enable_covs(wins, True, mh, mh, EDGE_W, pair_budget=8))
     rows = mid_windows(np.random.default_rng(7))
     mm = jt._mid_min_matches()
     ref = jeng.window_verdict_collect(jeng.window_verdict_dispatch(
         rows, mm, mm, jt.mid_threshold, MID_W, pair_budget=8, batch=16))
     got = teng.window_verdict_collect(teng.window_verdict_dispatch(
-        rows, mm, mm, tt.mid_threshold, MID_W, batch=16))
+        rows, mm, mm, tt.mid_threshold, MID_W, pair_budget=8, batch=16))
     np.testing.assert_array_equal(ref, got)
-    np.testing.assert_array_equal(got, mid_batch[2])
+    np.testing.assert_array_equal(got, detection_rows(mid_batch[0]))
+    assert teng.reruns["edge"] > 0 and teng.reruns["enable"] > 0
+    assert teng.reruns["middle_pair_budget"] > 0
 
 
 def test_engine_match_rows_match(engines, edge_batch):
