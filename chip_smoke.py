@@ -32,9 +32,11 @@ Phases (any failure ends the run with a non-zero exit):
 3. the map slice at E. coli scale: a synthetic 4.6 Mb genome (k = 11, seed
    rate 40, 10 kb chunks, 1 kb edges), 8192 reads of 6-10 kb at 8%
    substitutions, half reverse-complemented; ``Mapper.map_batch`` on the
-   card, timed over three passes after one warm-up pass, with the chain
-   kernel's launch count over those passes, the fused route taken, and the
-   recall of planted positions (>= 0.90);
+   card, timed over three passes after two warm-up passes (the first
+   captures the dispatches' graphs, the second those of the budgets its
+   counts settled), with the chain kernel's launch count over those
+   passes, the fused route taken, and the recall of planted positions
+   (>= 0.90);
    then one unsharded pass under ``torch.profiler`` with the stages
    ranged (``phase_profile``: wall, device busy time and idle share,
    per-stage host and device times; tables in
@@ -61,8 +63,9 @@ Phases (any failure ends the run with a non-zero exit):
    reverse-complemented: host index-build seconds, resident bytes on the
    card, routes (``_fused_map_bd`` must be taken), the largest ``n_bin``
    and final ``BB``, one warm-up pass whose chain launches are all held
-   against the plain version, three timed passes with the chain launch
-   count, recall (>= 0.90), peak device memory, one profiled pass
+   against the plain version and a second, unrecorded one, three timed
+   passes with the chain launch count, recall (>= 0.90), peak device
+   memory, one profiled pass
    (``chiprun_out/profile_map_64mb.txt``) and card-vs-CPU PAF identity on
    the first 64 reads;
 8. overlap, all-vs-all (``phase_overlap``, bench.py's
@@ -108,7 +111,22 @@ Phases (any failure ends the run with a non-zero exit):
    enqueued, the re-runs of its collect, and the device time its padding
    slots cost (profiled dispatch + collect at the path's budget against
    the exact budget).  The timed passes of the map, grid, overlap and
-   trim phases print their re-runs at collect too.
+   trim phases print their re-runs at collect too.  Two warm dispatches
+   come first: they capture the path's CUDA graphs (counted on their
+   own), so the dispatch held to the contract replays them;
+13. the capture / replay layer (``phase_graphs``, beside each
+   ``phase_dispatch`` case, and a 2 x 1 data grid whose blocks are one
+   graph each): per path, the graphs its keys hold (captures, replays,
+   nodes a graph, capture ms, the distinct pair budgets), host ms a
+   dispatch and device span and busy ms replayed against the same blocks
+   run eagerly, and the bytes of the graph pools and of the cache's
+   resident-table buffers; a path whose blocks go through the graphs must
+   replay, and capture nothing after its warm dispatches.  The overlap
+   phase prints the graphs each round captured and the resident tables
+   it copied in: the later rounds with the first round's table shapes
+   must capture fewer graphs in all than the first.  Every kernel launch
+   in a graph counts, and is recorded for the plain-version checks, at
+   each replay.
 
 Every launch a phase records is held against its plain version and
 timed (not counted) beside its bound.  It prints the kernel table as one
@@ -123,6 +141,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import ctypes
+import functools
 import json
 import os
 import subprocess
@@ -384,10 +403,14 @@ def phase_slice(dev, genome_len: int = GENOME, n_reads: int = N_READS):
         f"resident index state {state} bytes, built in "
         f"{time.perf_counter() - t0:.1f} s")
     bases = sum(len(r) for r in reads)
-    t0 = time.perf_counter()
-    mapper.map_batch(reads)                       # warm-up
-    sync(dev)
-    log(f"warm-up pass {time.perf_counter() - t0:.3f} s")
+    # two warm-up passes: the first captures each dispatch's graph at the
+    # JAX budgets, the second at the budgets its counts settled, so the
+    # timed passes replay
+    for _ in range(2):
+        t0 = time.perf_counter()
+        mapper.map_batch(reads)
+        sync(dev)
+        log(f"warm-up pass {time.perf_counter() - t0:.3f} s")
 
     eng.routes.clear()
     cuda_chain.chain_scan.launches = 0
@@ -522,7 +545,8 @@ def counted_reruns():
 DISPATCH_ROWS = []      # phase_dispatch's results, in the order measured
 # the paths phase_dispatch holds to the contract, each from its phase
 DISPATCH_CASES = ("map 4.6 Mb", "map 4.6 Mb on the 2 x 2 grid",
-                  "map 64 Mb", "overlap sub-batch", "trim edge batch",
+                  "map 4.6 Mb on a 2 x 1 data grid", "map 64 Mb",
+                  "overlap sub-batch", "trim edge batch",
                   "trim middle batch")
 
 
@@ -542,21 +566,37 @@ def _profiled_busy_ms(run) -> float:
                     and not e.is_user_annotation) / 1e3
 
 
+def _graph_replays() -> dict:
+    """Replays of each captured key of the process's graph cache."""
+    from downpore_tpu_torch.ops import captured
+    return {k: e.replays for k, e in captured.GRAPHS.entries.items()}
+
+
 def phase_dispatch(name: str, dispatch, collect, need):
     """One engine dispatch at full width, held to the dispatch / collect
     contract.  ``dispatch(budget)`` enqueues the work (``budget`` None:
     the path's own budgets) and returns its pending blocks; ``collect``
     makes them exact and fetches them; ``need(futs)``, after collect, is
-    the largest passing count of a block.  After a warm dispatch and
-    collect: the dispatch runs under ``torch.cuda.set_sync_debug_mode(
-    "error")`` (any wait on the card raises and fails the run), its host
-    wall time is taken beside the device span between CUDA events around
-    it, and the re-runs of its collect are counted; then the device busy
-    time of dispatch + collect under torch.profiler at the path's budget
-    and at the exact budget (the largest passing count: no padding slot,
-    no re-run) gives the device time the padding costs."""
-    collect(dispatch(None))
+    the largest passing count of a block.  Two warm dispatches and
+    collects first capture the path's graphs (a capture waits for the
+    card; they are counted on their own; the second runs at the budgets
+    the first one's counts settled); then the dispatch, now replays only,
+    runs
+    under ``torch.cuda.set_sync_debug_mode("error")`` (any wait on the
+    card raises and fails the run), its host wall time is taken beside
+    the device span between CUDA events around it, and the re-runs of its
+    collect are counted; then the device busy time of dispatch + collect
+    under torch.profiler at the path's budget and at the exact budget (the
+    largest passing count: no padding slot, no re-run; its graphs
+    captured before the profile) gives the device time the padding
+    costs."""
+    from downpore_tpu_torch.ops import captured
+    n_keys = len(captured.GRAPHS.entries)
+    for _ in range(2):
+        collect(dispatch(None))
+    captures = len(captured.GRAPHS.entries) - n_keys
     torch.cuda.synchronize()
+    before = _graph_replays()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
@@ -570,22 +610,109 @@ def phase_dispatch(name: str, dispatch, collect, need):
     e1.record()
     e1.synchronize()
     span_ms = e0.elapsed_time(e1)
+    replays = sum(r - before.get(k, 0) for k, r in _graph_replays().items())
     with counted_reruns() as reruns:
         collect(futs)
     n = need(futs)
     busy = _profiled_busy_ms(lambda: collect(dispatch(None)))
+    collect(dispatch(max(1, n)))            # captures the exact budget's
     busy_exact = _profiled_busy_ms(lambda: collect(dispatch(max(1, n))))
     row = {"name": name, "dispatch_ms": host_ms, "device_span_ms": span_ms,
            "device_busy_ms": busy, "exact_budget": n,
            "exact_busy_ms": busy_exact, "padding_ms": busy - busy_exact,
-           "reruns": reruns["reruns"]}
+           "reruns": reruns["reruns"], "captures": captures,
+           "replays": replays}
     DISPATCH_ROWS.append(row)
-    log(f"phase_dispatch {name}: dispatch {host_ms:.3f} ms on the host under "
-        f"set_sync_debug_mode('error') (no wait), device span of the work "
-        f"it enqueued {span_ms:.3f} ms; device busy (dispatch + collect) "
-        f"{busy:.3f} ms at the path's budget, {busy_exact:.3f} ms at the "
-        f"exact budget {n}: padding {busy - busy_exact:.3f} ms; re-runs at "
-        f"collect {reruns['reruns']}")
+    log(f"phase_dispatch {name}: warm dispatches captured {captures} "
+        f"graphs; "
+        f"dispatch {host_ms:.3f} ms on the host under "
+        f"set_sync_debug_mode('error') (no wait; {replays} replays), "
+        f"device span of the work it enqueued {span_ms:.3f} ms; device "
+        f"busy (dispatch + collect) {busy:.3f} ms at the path's budget, "
+        f"{busy_exact:.3f} ms at the exact budget {n}: padding "
+        f"{busy - busy_exact:.3f} ms; re-runs at collect {reruns['reruns']}")
+    return row
+
+
+GRAPH_ROWS = []         # phase_graphs' results, in the order measured
+GRAPH_REPS = 5          # dispatches timed a side in phase_graphs
+
+
+def _eager_run(fn, inputs, tables=None, **statics):
+    """``captured.run`` without the graphs: the block called directly."""
+    return fn(**inputs, **(tables or {}), **statics)
+
+
+def _dispatch_times(dispatch, collect, reps: int) -> tuple:
+    """Median host ms of ``reps`` dispatches (each collected before the
+    next), the median device span of the work each enqueued (CUDA events
+    around the dispatch, read after its collect), and the device busy ms
+    of one dispatch + collect under torch.profiler."""
+    host, span = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        t0 = time.perf_counter()
+        futs = dispatch(None)
+        host.append((time.perf_counter() - t0) * 1e3)
+        e1.record()
+        collect(futs)
+        e1.synchronize()
+        span.append(e0.elapsed_time(e1))
+    busy = _profiled_busy_ms(lambda: collect(dispatch(None)))
+    return float(np.median(host)), float(np.median(span)), busy
+
+
+def phase_graphs(name: str, dispatch, collect, graphs: bool = True):
+    """The capture / replay layer on one full-width path (``dispatch`` and
+    ``collect`` as ``phase_dispatch`` takes them): the graphs the path's
+    keys hold (captures, replays, nodes a graph, capture ms, the distinct
+    budgets), host ms a dispatch and the device span and busy ms, replays
+    against the same blocks run eagerly (``captured.run`` patched to call
+    them directly) in the same call, and the bytes of the graph pools and
+    of the cache's resident tables.  A path whose blocks go through the
+    graphs (``graphs``; the seed-sharded routes run eagerly) must replay,
+    and its measured dispatches must capture nothing."""
+    from downpore_tpu_torch.ops import captured
+    G = captured.GRAPHS
+    n_keys = len(G.entries)
+    collect(dispatch(None))
+    captured_now = len(G.entries) - n_keys
+    before = _graph_replays()
+    rep = _dispatch_times(dispatch, collect, GRAPH_REPS)
+    after = _graph_replays()
+    keys = [k for k, r in after.items() if r > before.get(k, 0)]
+    with patched([(captured, "run", _eager_run)]):
+        eager = _dispatch_times(dispatch, collect, GRAPH_REPS)
+    stats = G.stats()
+    mine = [stats[k] for k in keys]
+    row = {"name": name, "graphs": graphs, "keys": len(keys),
+           "captures": captured_now,
+           "replays": sum(after[k] - before.get(k, 0) for k in keys),
+           "nodes": sorted(s["nodes"] for s in mine),
+           "capture_ms": sorted(round(s["capture_ms"], 3) for s in mine),
+           "budgets": sorted({s["statics"].get("pair_budget")
+                              for s in mine}),
+           "replay": rep, "eager": eager, "pool_bytes": G.pool_bytes(),
+           "table_bytes": G.table_bytes()}
+    GRAPH_ROWS.append(row)
+    log(f"phase_graphs {name}: {row['keys']} keys replayed "
+        f"({captured_now} captured by its warm dispatch), "
+        f"{row['replays']} replays in {GRAPH_REPS} dispatches; nodes a "
+        f"graph {row['nodes']}; capture ms {row['capture_ms']}; budgets "
+        f"{row['budgets']}; host ms a dispatch {rep[0]:.3f} replayed vs "
+        f"{eager[0]:.3f} eager; device span {rep[1]:.3f} vs {eager[1]:.3f} "
+        f"ms; device busy {rep[2]:.3f} vs {eager[2]:.3f} ms; graph pools "
+        f"{row['pool_bytes']} bytes, resident-table buffers "
+        f"{row['table_bytes']} bytes (all graphs so far: "
+        f"{len(G.entries)})")
+    if graphs and (not row["replays"] or len(G.entries) != n_keys
+                   + captured_now):
+        raise SystemExit(f"phase_graphs {name}: {row['replays']} replays, "
+                         f"{len(G.entries) - n_keys - captured_now} "
+                         f"captures after the warm dispatch")
     return row
 
 
@@ -599,11 +726,14 @@ def map_dispatch_case(name: str, mapper, reads):
         wins += [r.subsequence(0, es), r.subsequence(len(r) - es, len(r))]
     packed = eng.pack_query_windows(wins)
     base_min = np.maximum(5, packed[6] // 5).astype(np.int32)
-    return phase_dispatch(
-        name, lambda b: eng.dispatch_packed(packed, base_min,
-                                            pair_budget=b or 0),
-        lambda f: eng.collect_arrays_many([f]),
+    dispatch = lambda b: eng.dispatch_packed(packed, base_min,
+                                             pair_budget=b or 0)
+    collect = lambda f: eng.collect_arrays_many([f])
+    row = phase_dispatch(
+        name, dispatch, collect,
         lambda f: max(int(p.host.wait()[0][0]) for p in f[1]))
+    phase_graphs(name, dispatch, collect, graphs=not eng.seed_sharded)
+    return row
 
 
 @contextlib.contextmanager
@@ -1011,16 +1141,48 @@ def containment(seqs, genome) -> list:
     return out
 
 
-def recording(launch, plain, calls: list):
+def recording(launch, plain, calls: list, want=None):
     """``launch`` (a kernel wrapper's ``_launch``) that also keeps a copy
     of each launch's card inputs and outputs in ``calls``, to be held
-    against ``plain`` (and timed) after the run."""
+    against ``plain`` (and timed) after the run.  A launch captured into a
+    CUDA graph (``captured.run``) is recorded at every replay of the graph:
+    the capture keeps the launch's buffers in the graph (referenced, so no
+    later node reuses them), and each replay copies them once the replay
+    is enqueued.  ``want()`` says whether to record a launch now (default:
+    while the wrapper is its module's ``_launch``); the first replay it
+    refuses releases the buffers."""
+    from downpore_tpu_torch.ops import captured
+
+    def active():
+        if want is not None:
+            return want()
+        return getattr(sys.modules[launch.__module__], "_launch",
+                       None) is wrapper
+
+    def keep(saved, outs):
+        calls.append((plain, [x.clone() if torch.is_tensor(x) else x
+                              for x in saved],
+                      [o.clone() for o in outs], launch))
+
     def wrapper(*a):
+        if captured.capturing():
+            out = launch(*a)
+            if a[0].numel():
+                held = [a, out if isinstance(out, tuple) else (out,)]
+
+                def at_replay():
+                    if held and active():
+                        keep(*held)
+                    else:
+                        held.clear()
+                captured.each_run(at_replay)
+            return out
+        if not (a[0].numel() and active()):
+            return launch(*a)
         saved = [x.clone() if torch.is_tensor(x) else x for x in a]
         out = launch(*a)
-        if saved[0].numel():
-            outs = out if isinstance(out, tuple) else (out,)
-            calls.append((plain, saved, [o.clone() for o in outs], launch))
+        outs = out if isinstance(out, tuple) else (out,)
+        calls.append((plain, saved, [o.clone() for o in outs], launch))
         return out
     return wrapper
 
@@ -1391,6 +1553,8 @@ def phase_chromosome(dev):
         f"{len(calls)} chain launches against the plain version:")
     err = check_recorded(calls).get("chain_scan", 0)
     del calls
+    mapper.map_batch(reads)     # the second warm-up, at settled budgets
+    sync(dev)
 
     eng.routes.clear()
     eng.bins.clear()
@@ -1524,7 +1688,7 @@ def phase_overlap(dev):
     import downpore_tpu_torch.utils as port_utils
     from downpore_tpu_torch.cli.main import main as cli_main
     from downpore_tpu_torch.cli.overlap_command import OverlapCommand
-    from downpore_tpu_torch.ops import cuda_chain
+    from downpore_tpu_torch.ops import captured, cuda_chain
     from downpore_tpu_torch.overlap import Overlapper
 
     spent = {"kmers": 0.0, "prep": 0.0, "find": 0.0, "final": 0.0}
@@ -1538,8 +1702,12 @@ def phase_overlap(dev):
     final_timed = timed(OverlapCommand._final_checks_arrays, "final", spent,
                         dev)
 
+    graphs_at = []      # (graphs, table copies) as each round's find starts
+
     def find(self, queries):
         r = len(per_round) + 1
+        graphs_at.append((len(captured.GRAPHS.entries),
+                          captured.GRAPHS.table_copies))
         if r == 1:     # hold the first round's launches to the plain scan
             cuda_chain._launch = recording(launch,
                                            cuda_chain.chain_scan_plain, calls)
@@ -1609,8 +1777,22 @@ def phase_overlap(dev):
         f"{reruns['reruns']}; peak device memory "
         f"{torch.cuda.max_memory_allocated()} bytes; {n_paf} PAF lines, "
         f"sha256 {hashlib.sha256(paf).hexdigest()}")
+    graphs_at.append((len(captured.GRAPHS.entries),
+                      captured.GRAPHS.table_copies))
+    new = [b[0] - a[0] for a, b in zip(graphs_at, graphs_at[1:])]
+    copies = [b[1] - a[1] for a, b in zip(graphs_at, graphs_at[1:])]
     for r, (C, H, nt, nb) in enumerate(per_round, 1):
-        log(f"  round {r}: {C} chunks, H={H}, nt={nt}, resident {nb} bytes")
+        log(f"  round {r}: {C} chunks, H={H}, nt={nt}, resident {nb} bytes; "
+            f"graphs captured {new[r - 1]}, resident tables copied into the "
+            f"graph cache {copies[r - 1]}")
+    # the rounds whose tables have the first round's shapes (H, nt and
+    # resident bytes: the padded chunk axis, not the chunk count) replay its
+    # graphs: they capture only keys of budgets the job's plan grew to,
+    # fewer in all than the first round
+    same = [r for r in range(1, len(per_round)) if per_round[r][1:]
+            == per_round[0][1:]]
+    if same and sum(new[r] for r in same) >= new[0]:
+        raise SystemExit(f"overlap captures grew with the rounds: {new}")
     log("overlap stderr: " + " | ".join(stderr))
     if len(prof_t0) == 2:
         pw = prof_t0[1] - prof_t0[0]
@@ -1642,13 +1824,16 @@ def overlap_dispatch_case(eng, queries):
     base_min = np.array([int(0.25 * q.num_seeds + 0.5) for q in sq],
                         np.int32)
     plan = {}
-    return phase_dispatch(
-        f"overlap round {OV_PROFILED_ROUND}, one sub-batch of {len(sq)} "
-        f"queries",
-        lambda b: eng.dispatch_chains(sq, base_min, pair_budget=b or 0,
-                                      shape_plan=plan),
-        eng.collect_chains_raw,
+    name = (f"overlap round {OV_PROFILED_ROUND}, one sub-batch of "
+            f"{len(sq)} queries")
+    dispatch = lambda b: eng.dispatch_chains(sq, base_min,
+                                             pair_budget=b or 0,
+                                             shape_plan=plan)
+    row = phase_dispatch(
+        name, dispatch, eng.collect_chains_raw,
         lambda f: max(int(p.host.wait()[0][0]) for p in f[1]))
+    phase_graphs(name, dispatch, eng.collect_chains_raw)
+    return row
 
 
 TRIM_READS = 65_536
@@ -1753,7 +1938,7 @@ def phase_trim(dev):
     import threading
     from collections import Counter
     from downpore_tpu_torch.io import SequenceSet
-    from downpore_tpu_torch.ops import cuda_chain
+    from downpore_tpu_torch.ops import captured, cuda_chain
     from downpore_tpu_torch.ops import window_engine as we
     from downpore_tpu_torch.trim.trimmer import Trimmer, _MidStream
 
@@ -1762,17 +1947,27 @@ def phase_trim(dev):
     launch = cuda_chain._launch
 
     def staged_launch(*a):
-        # _launch launches the kernel (and counts it) unless P or A is 0
+        # _launch launches the kernel (and counts it) unless P or A is 0;
+        # inside a capture it counts, and so does its stage, at each
+        # replay of the graph, where the kernel runs
         if not a[0].numel():
             return launch(*a)
         stage = getattr(where, "stage", "other")
-        per_stage[stage] += 1
-        if recorded[stage] < TRIM_RECORDED:
+
+        def count():
+            per_stage[stage] += 1
+
+        def want():
+            if recorded[stage] >= TRIM_RECORDED:
+                return False
             recorded[stage] += 1
-            return recording(launch, cuda_chain.chain_scan_plain, calls)(*a)
-        return launch(*a)
+            return True
+        captured.each_run(count)
+        return recording(launch, cuda_chain.chain_scan_plain, calls,
+                         want)(*a)
 
     def staged(fn, stage):
+        @functools.wraps(fn)
         def wrapper(*a, **kw):
             prev = getattr(where, "stage", None)
             where.stage = stage
@@ -1869,6 +2064,11 @@ def profile_trim(path: str, dev, out_path=PROFILE_TRIM_OUT):
     batch = list(seqs.get_n_sequences_from(0, TRIM_EDGE_BATCH))
     t._finish_edge_batch(seqs, t._dispatch_edge_batch(batch))   # warm-up
     stream = t._mid_stream(seqs)
+    # warm-up of the middle batch too: the profiled batches replay their
+    # graphs, none is captured under the profiler
+    stream.add_batch(batch[:2730])
+    stream._dispatch()
+    stream._collect()
     with ranged(TRIM_RANGES):
         sync(dev)
         for name, run in (
@@ -1909,15 +2109,16 @@ def trim_dispatch_cases(t, batch, stream):
               *t._edge_mins(t.front_sets), len(t.front_adapters)),
              ([s.subsequence(len(s) - EDGE_SIZE, len(s)) for s in usable],
               False, *t._edge_mins(t.back_sets), len(t.back_adapters))]
-    phase_dispatch(
-        f"trim edge batch ({len(usable)} reads, both sides)",
-        lambda b: [eng.edge_verdict_dispatch(w, front, gm, cm, W,
-                                             pair_budget=b or 16384)
-                   for w, front, gm, cm, _ in sides],
-        lambda f: [eng.edge_verdict_collect(fs, n)
-                   for fs, (*_, n) in zip(f, sides)],
-        lambda f: max(int(p.host.wait()[2][0]) for fs in f
-                      for _, blocks in fs for p in blocks))
+    edge = (lambda b: [eng.edge_verdict_dispatch(w, front, gm, cm, W,
+                                                  pair_budget=b or 16384)
+                       for w, front, gm, cm, _ in sides],
+            lambda f: [eng.edge_verdict_collect(fs, n)
+                       for fs, (*_, n) in zip(f, sides)])
+    name = f"trim edge batch ({len(usable)} reads, both sides)"
+    phase_dispatch(name, *edge,
+                   lambda f: max(int(p.host.wait()[2][0]) for fs in f
+                                 for _, blocks in fs for p in blocks))
+    phase_graphs(name, *edge)
     stream.add_batch(batch[:2730])
     n = stream.count
     rows, lens = stream.rows[:n].copy(), stream.lens[:n].copy()
@@ -1933,6 +2134,8 @@ def trim_dispatch_cases(t, batch, stream):
     phase_dispatch(f"trim middle batch ({n} windows)", mid,
                    eng.window_verdict_collect,
                    lambda f: max(int(p.host.wait()[0][-1, 0]) for p in f))
+    phase_graphs(f"trim middle batch ({n} windows)", mid,
+                 eng.window_verdict_collect)
 
 
 def _device_us(evt) -> float:
@@ -2157,6 +2360,14 @@ def phase_grid(mapper, reads, dev):
                          "mapper's")
     map_dispatch_case("map 4.6 Mb on the 2 x 2 grid (one card)", gm, reads)
     del gm, eng, warm, results
+    # a data grid: each data block is its own graph (the 2 x 2 grid's
+    # seed shards run eagerly)
+    dp = copy.copy(mapper)
+    dp.mesh = make_mesh(n_data=2, n_seed=1, devices=[dev] * 2)
+    dp._build_device_index()
+    map_dispatch_case("map 4.6 Mb on a 2 x 1 data grid (one card)", dp,
+                      reads)
+    del dp
 
     with tempfile.TemporaryDirectory() as d:
         rng = np.random.default_rng(SEED + 60)
@@ -2618,6 +2829,24 @@ def main() -> int:
     if len(DISPATCH_ROWS) != len(DISPATCH_CASES):
         raise SystemExit(f"phase_dispatch measured {len(DISPATCH_ROWS)} "
                          f"cases, not {len(DISPATCH_CASES)}")
+    from downpore_tpu_torch.ops import captured
+    log("phase_graphs, every path (keys / replays / host ms replayed vs "
+        "eager / device busy ms replayed vs eager / pool bytes): "
+        + "; ".join(
+            f"{r['name']} {r['keys']} / {r['replays']} / "
+            f"{r['replay'][0]:.3f} vs {r['eager'][0]:.3f} / "
+            f"{r['replay'][2]:.3f} vs {r['eager'][2]:.3f} / "
+            f"{r['pool_bytes']}" for r in GRAPH_ROWS))
+    by_route = {}
+    for st in captured.GRAPHS.stats().values():
+        c, rp, nodes = by_route.get(st["route"], (0, 0, 0))
+        by_route[st["route"]] = (c + 1, rp + st["replays"],
+                                 max(nodes, st["nodes"]))
+    log(f"graph cache over the whole run: {len(captured.GRAPHS.entries)} "
+        f"captures, by route (captures, replays, most nodes a graph) "
+        f"{by_route}; graph pools {captured.GRAPHS.pool_bytes()} bytes, "
+        f"resident-table buffers {captured.GRAPHS.table_bytes()} bytes, "
+        f"{captured.GRAPHS.table_copies} table copies")
     # update_bands runs on no path: in the JAX package the Pallas band
     # kernel is test-only, and its step is the beam kernel's inner loop
     from downpore_tpu_torch.ops import cuda_chain

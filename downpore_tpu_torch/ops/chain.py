@@ -440,7 +440,9 @@ def extract_best_chain(out, pair_idx: int):
 
 def _bucket(n: int) -> int:
     """The JAX module's batch bucket off the TPU: the power of two from 8
-    up that holds ``n``.  The port pads to it nowhere."""
+    up that holds ``n``.  The engines pad their rows to the accelerator
+    ladder instead (``captured.row_bucket``), the library wrappers to
+    nothing."""
     b = 8
     while b < n:
         b *= 2

@@ -16,7 +16,10 @@ tj, qp, tp, valid as 0/1), each one launch of ``csrc/chain_scan.cu``:
 A tensor on the CPU goes to ``chain_scan_plain``, a per-step transcription
 of ``_chain_scan`` vectorised over pairs.  A CUDA tensor launches the
 kernel or raises; there is no fallback.  ``chain_scan.launches`` counts
-the kernel's launches in every mode, ``MODE_LAUNCHES`` by mode.
+the kernel's launches in every mode, ``MODE_LAUNCHES`` by mode; a launch
+captured into a CUDA graph (``captured.run``) counts at each replay of the
+graph, where the kernel runs, and not at its capture
+(``captured.each_run``).
 
 The kernel is bound by the integer issue rate: A serial steps per pair,
 step t checking every p < t.  It keeps a pair's anchors in registers, one
@@ -32,7 +35,7 @@ import threading
 
 import torch
 
-from . import _build
+from . import _build, captured
 
 NEG = -(10 ** 9)
 VARIANTS = {"extend": 0, "aligner": 1}
@@ -242,9 +245,11 @@ def _launch(qi, tj, qp, tp, valid, k: int, variant: str,
         msg = lib.chain_scan_error_string(err).decode()
         raise RuntimeError(f"chain_scan kernel launch failed ({mode}, "
                            f"A = {A}): {msg} ({err})")
-    with _count_lock:
-        chain_scan.launches += 1
-        MODE_LAUNCHES[mode] += 1
+    def count():
+        with _count_lock:
+            chain_scan.launches += 1
+            MODE_LAUNCHES[mode] += 1
+    captured.each_run(count)
     return tuple(outs)
 
 

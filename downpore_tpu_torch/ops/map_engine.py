@@ -24,9 +24,18 @@ a block whose count exceeded its budget is re-run there with the budget
 grown 4x, as the JAX collect does, so the output never depends on the
 budget.  The budgets start as the JAX engine's (``map_budget``,
 ``overlap_budget``); a map dispatch of a route and size already
-collected runs at a quarter over that count when smaller
-(``_map_budget``), and overlap dispatches at the job plan's
+collected runs at a quarter over the largest count collected there when
+smaller (``_map_budget``), and overlap dispatches at the job plan's
 (``query_chains``).
+
+As in the JAX engine, a batch's rows are padded to a shape bucket
+(``captured.row_bucket``: 256, 1024, then the 2048 grid; for an overlap
+job at least the plan's ``mb``, the shape half of its shape plan) with
+rows that never pass the gate, and each block runs through
+``captured.run``: on a card it is captured once per (route, bucket,
+budgets, statics, table shapes) as a CUDA graph and replayed after, the
+counterpart of the JAX engine's ``jax.jit`` per shape.  The seed-sharded
+routes, whose partial counts cross devices, run eagerly.
 
 At ``_BINNED_MIN_C`` chunks or more a ``binned=True`` engine takes the
 two-level gate instead (``_binned_gate``): chunks are permuted into
@@ -46,10 +55,9 @@ rows compacted to the front; ``collect_chains`` reads the counts, slices
 the rows to the kept ones and the real chain length on the device,
 fetches them and turns them into per-query candidate lists.
 
-Dropped from the JAX engine because no output depends on them:
-batch-size buckets, the compiled-shape half of the overlap shape plan
-(only its pair budget is kept), the speculative chain prefetch, combined
-int16 uploads and clipped gathers.
+Dropped from the JAX engine because no output depends on them: the
+speculative chain prefetch, combined int16 uploads and clipped
+gathers.
 
 With a device grid (``parallel.make_mesh``) every batch splits into the
 grid's data shards (contiguous, equal row blocks, the tail padded with
@@ -75,6 +83,7 @@ import torch
 
 from .. import resolve_device
 from ..parallel.mesh import DeviceGrid
+from . import captured
 from . import match as match_ops
 from .chain import anchors_of_slots, make_anchors_topk, dp_from_anchors, \
     dp_forward_lean, summarize_dp, compact_indices
@@ -1025,17 +1034,20 @@ class MapEngine:
         else:
             route = ("_fused_map_b" if self._binned else "_fused_map_") \
                 + ("d" if derive else "c")
-        # a data split's padding rows (min_count 0) never pass the gate
+        # the bucket's and a data split's padding rows (min_count 0) never
+        # pass the gate
         rows = dict(q_pos=(q_pos, 0), min_count=(min_count, 0),
                     base_min=(base_min, 1 << 14), q_len=(q_len, 0),
                     q_seeds=(q_seeds, -1))
         if not derive:
             rows.update(q_rb=(q_rb, -1), q_db=(q_db, -1))
-        budget = pair_budget or self._map_budget(route, M)
+        MB = captured.padded_rows(M, self._grid.shape["data"])
+        budget = pair_budget or self._map_budget(route, MB)
         keep = []
         blocks = []
         for d, lo, parts in self._grid.split_rows(
-                [np.asarray(a, np.int32) for a, _ in rows.values()],
+                [captured.pad_rows(np.asarray(a, np.int32), MB, f)
+                 for a, f in rows.values()],
                 [f for _, f in rows.values()], keep):
             q = dict(zip(rows, parts))
             tabs = self._tables(d)
@@ -1046,49 +1058,57 @@ class MapEngine:
                                   top_k),
                 (budget, self._BB if self._binned else 0), keep,
                 _map_fetch))
-        return (M, blocks, (route, M))
+        return (M, blocks, (route, MB))
 
-    def _map_budget(self, route: str, M: int) -> int:
-        """The pair budget of each block of a map dispatch of ``M`` rows
-        on ``route``: the JAX engine's (``map_budget``, split over the
-        blocks) or, once a dispatch of that route and size has been
-        collected, ``_tight`` of its largest block count when smaller.
-        Any budget gives the same rows (collect re-runs an overflow); a
-        tight one spares the device the padding slots' anchors."""
-        budget = _per_block(map_budget(M, self.num_seeds > 2 * self.H),
+    def _map_budget(self, route: str, MB: int) -> int:
+        """The pair budget of each block of a map dispatch of ``MB``
+        (bucketed) rows on ``route``: the JAX engine's (``map_budget``,
+        split over the blocks) or, once a dispatch of that route and size
+        has been collected, ``_tight`` of the largest block count
+        collected there when smaller.  Any budget gives the same rows
+        (collect re-runs an overflow); a tight one spares the device the
+        padding slots' anchors, and one that follows the running maximum
+        settles, so the dispatches of a route and size replay one
+        captured graph."""
+        budget = _per_block(map_budget(MB, self.num_seeds > 2 * self.H),
                             self._grid.shape["data"])
-        seen = self._seen.get((route, M))
+        seen = self._seen.get((route, MB))
         return budget if seen is None else min(budget, _tight(seen))
 
     def _dispatch_block(self, q: dict, tabs: dict, route: str, top_k: int,
                         budget: int, BB: int):
         """One data shard's fused map pipeline on its device, at ``budget``
         pairs (and width ``BB``, binned): ``(head, packed16, n_ok[,
-        n_bin])`` on the device."""
-        args = dict(q_pos=q["q_pos"], min_count=q["min_count"],
-                    base_min=q["base_min"], q_len=q["q_len"],
-                    q_seeds=q["q_seeds"], t_seeds=tabs["t_seeds"],
-                    t_pos=tabs["t_pos"], k=self.k, pair_budget=budget,
-                    top_k=top_k, lean=self.lean)
+        n_bin])`` on the device, through ``captured.run`` (the
+        seed-sharded route eagerly)."""
+        inputs = {n: q[n] for n in ("q_pos", "min_count", "base_min",
+                                    "q_len", "q_seeds")}
+        tables = dict(t_seeds=tabs["t_seeds"], t_pos=tabs["t_pos"])
+        statics = dict(k=self.k, pair_budget=budget, top_k=top_k,
+                       lean=self.lean)
         if route == "_map_from_counts":
             dev = tabs["device"]
             return _map_from_counts(
                 sharded_counts(tabs["mem_blocks"], q["q_rb"], dev),
-                sharded_counts(tabs["mem_blocks"], q["q_db"], dev), **args)
-        args["membership"] = tabs["membership"]
-        gate = dict(NB=self._NB, CB=self._CB, BB=BB, C=self.C) \
-            if self._binned else {}
+                sharded_counts(tabs["mem_blocks"], q["q_db"], dev),
+                **inputs, **tables, **statics)
+        tables["membership"] = tabs["membership"]
+        if route in ("_fused_map_d", "_fused_map_bd"):
+            tables["usable"] = tabs["usable_dev"]
+            statics["hashed"] = self._hashed
+        else:
+            inputs.update(q_rb=q["q_rb"], q_db=q["q_db"])
         if route == "_fused_map_bd":
-            return _fused_map_bd(
-                usable=tabs["usable_dev"], bin_mem=tabs["bin_mem1"],
-                hashed=self._hashed, hashed1=self._hashed1, **gate, **args)
-        if route == "_fused_map_bc":
-            return _fused_map_bc(q_rb=q["q_rb"], q_db=q["q_db"],
-                                 bin_mem=tabs["bin_mem2"], **gate, **args)
-        if route == "_fused_map_d":
-            return _fused_map_d(usable=tabs["usable_dev"],
-                                hashed=self._hashed, **args)
-        return _fused_map_c(q_rb=q["q_rb"], q_db=q["q_db"], **args)
+            tables["bin_mem"] = tabs["bin_mem1"]
+            statics["hashed1"] = self._hashed1
+        elif route == "_fused_map_bc":
+            tables["bin_mem"] = tabs["bin_mem2"]
+        if self._binned:
+            statics.update(NB=self._NB, CB=self._CB, BB=BB, C=self.C)
+        fn = {"_fused_map_d": _fused_map_d, "_fused_map_c": _fused_map_c,
+              "_fused_map_bd": _fused_map_bd,
+              "_fused_map_bc": _fused_map_bc}[route]
+        return captured.run(fn, inputs, tables, **statics)
 
     def _collect_block(self, p: Pending):
         """A map block's host rows, exact: while its passing count exceeds
@@ -1138,7 +1158,7 @@ class MapEngine:
                     order = np.lexsort((head[:, 1], head[:, 0]))
                     head, packed = head[order], packed[order]
                 parts[p.lo] = (head, packed)
-            self._seen[shape] = max(counts)
+            self._seen[shape] = max(self._seen.get(shape, 0), *counts)
             parts = self._grid.gather(parts)
             out.append(parts[0] if len(parts) == 1 else tuple(
                 np.concatenate([p[i] for p in parts]) for i in range(2)))
@@ -1195,7 +1215,10 @@ class MapEngine:
         passing pairs (0: ``overlap_budget`` of the batch's rows split
         over the blocks, raised to the job's ``shape_plan["budget"]``,
         which collect keeps at ``_grown`` of the largest block count it
-        has seen)."""
+        has seen).  The rows are padded to the job's ``shape_plan["mb"]``,
+        the largest row bucket its batches have had (the JAX overlapper's
+        shape half of the plan), so that a round's short last batch and
+        every later round replay the graphs of its full batches."""
         M = len(seed_queries)
         if M == 0 or self.C == 0:
             return []
@@ -1215,7 +1238,11 @@ class MapEngine:
         chain_len = min(chain_len, nq_eff)
         min_count = (self.hit_fraction * num_sets + 0.5).astype(np.int64)
         min_count[num_sets < min_sets] = 0
-        # a data split's padding rows (min_count 0) never pass the gate
+        MB = max(captured.row_bucket(M), plan.get("mb", 0))
+        plan["mb"] = MB
+        MB = captured.padded_rows(MB, self._grid.shape["data"])
+        # the bucket's and a data split's padding rows (min_count 0) never
+        # pass the gate
         rows = dict(q_pos=(q_pos, 0), min_count=(min_count, 0),
                     q_seeds=(q_seeds, -1))
         if derive:
@@ -1232,43 +1259,44 @@ class MapEngine:
         keep = []
         blocks = []
         for d, lo, parts in self._grid.split_rows(
-                [np.asarray(a, np.int32) for a, _ in rows.values()],
+                [captured.pad_rows(np.asarray(a, np.int32), MB, f)
+                 for a, f in rows.values()],
                 [f for _, f in rows.values()], keep):
             q = dict(zip(rows, parts))
             tabs = self._tables(d)
-            common = dict(q_pos=q["q_pos"], min_count=q["min_count"],
-                          q_seeds=q["q_seeds"], base_min=q["base_min"],
-                          t_seeds=tabs["t_seeds"], t_pos=tabs["t_pos"],
-                          k=self.k, variant=variant,
-                          chain_len=chain_len)
+            statics = dict(k=self.k, variant=variant, chain_len=chain_len)
             self.routes[route] += 1
             blocks.append(Pending(
                 lo, tabs["device"],
                 functools.partial(self._overlap_block, q, tabs, route,
-                                  common),
+                                  statics),
                 (budget,), keep, _overlap_fetch))
         futs = (M, blocks, plan)
         return futs if _defer else self.collect_chains(futs)
 
-    def _overlap_block(self, q: dict, tabs: dict, route: str, common: dict,
+    def _overlap_block(self, q: dict, tabs: dict, route: str, statics: dict,
                        budget: int):
         """One data shard's fused overlap pipeline on its device, at
         ``budget`` pairs: ``(head, cq, ct, n_ok, n_keep, mx)`` on the
-        device."""
+        device, through ``captured.run`` (the seed-sharded route
+        eagerly)."""
+        inputs = {n: q[n] for n in ("q_pos", "min_count", "q_seeds",
+                                    "base_min")}
+        tables = dict(t_seeds=tabs["t_seeds"], t_pos=tabs["t_pos"])
+        statics = dict(statics, pair_budget=budget)
         if route == "_overlap_from_counts":
             dev = tabs["device"]
             return _overlap_from_counts(
                 sharded_counts(tabs["mem_blocks"], q["q_rb"], dev),
                 sharded_counts(tabs["mem_blocks"], q["q_db"], dev),
-                pair_budget=budget, **common)
+                **inputs, **tables, **statics)
+        tables["membership"] = tabs["membership"]
         if route == "_fused_overlap_d":
-            return _fused_overlap_d(usable=tabs["usable_dev"],
-                                    membership=tabs["membership"],
-                                    hashed=self._hashed, pair_budget=budget,
-                                    **common)
-        return _fused_overlap(q_rb=q["q_rb"], q_db=q["q_db"],
-                              membership=tabs["membership"],
-                              pair_budget=budget, **common)
+            tables["usable"] = tabs["usable_dev"]
+            return captured.run(_fused_overlap_d, inputs, tables,
+                                hashed=self._hashed, **statics)
+        inputs.update(q_rb=q["q_rb"], q_db=q["q_db"])
+        return captured.run(_fused_overlap, inputs, tables, **statics)
 
     def dispatch_chains(self, seed_queries: List, base_min: np.ndarray,
                         pair_budget: int = 0, chain_len: int = 128,

@@ -33,10 +33,19 @@ detection budget so at 4x that budget, whose first rows it keeps.  So above
 ``4 * det_budget`` detections in one block the middle pass drops the
 rest, exactly as the JAX package does.
 
-Dropped from the JAX engine because no output depends on them:
-batch-size buckets, the rotating host staging buffers (a pinned staging
-tensor per upload, kept by the dispatch's blocks), the resident copy of
-the thresholds, the ``lax.map`` segments and the one-hot picks.  So is
+The dispatches pad a batch's rows to the JAX engine's shape bucket
+(``captured.row_bucket``, rounded to the grid's data axis; padding rows
+have no k-mers) and run each block through ``captured.run``: on a card
+one CUDA graph per (verdict, bucket, budgets, table shapes), captured at
+its first dispatch and replayed after, the counterpart of the JAX
+engine's ``jax.jit`` per shape.  A re-run at collect takes a budget that
+covers every passing pair and settles (``_rerun_budget``), so the
+re-runs of a run replay one graph.
+
+Dropped from the JAX engine because no output depends on them: the
+rotating host staging buffers (a pinned staging tensor per upload, kept
+by the dispatch's blocks), the resident copy of the thresholds, the
+``lax.map`` segments and the one-hot picks.  So is
 the paired edge route (``_fused_edge_pair``, ``edge_pair_dispatch`` /
 ``edge_pair_collect`` and the front/back tables stacked for them):
 stacking bought the JAX engine one XLA call for both sides, but here it
@@ -65,8 +74,10 @@ import torch
 
 from .. import resolve_device
 from ..parallel.mesh import DeviceGrid
+from . import captured
 from .chain import anchors_of_slots, compact_indices, dp_from_anchors, \
     make_anchors_topk, summarize_dp, summarize_scalars, unpack_summary
+from .map_engine import _tight
 from .transfer import HostCopy, Pending, upload
 
 _BIGM = 1 << 20  # impossible min-match for gate-failing pairs
@@ -371,6 +382,8 @@ class WindowChainEngine:
         self.nq = nq
         # re-runs at collect, by verdict and budget
         self.reruns = Counter()
+        # the pair budget each verdict's re-runs take (``_rerun_budget``)
+        self._rerun_at = {}
         # window batches run on the grid's data shards; without a grid,
         # on a 1 x 1 grid of ``device``
         self.mesh = mesh
@@ -483,17 +496,40 @@ class WindowChainEngine:
         for blo, p, ln in self._blocks(packed_dev, lens_dev):
             tab, (a_seeds, a_pos, a_len), is_bc = self._side(front,
                                                              p.device)
-            side = dict(is_barcode=is_bc) if barcodes else {}
+            tables = dict(km_table=tab, a_seeds=a_seeds, a_pos=a_pos,
+                          a_len=a_len)
+            if barcodes:
+                tables["is_barcode"] = is_bc
 
-            def run(*args, p=p, ln=ln, tab=tab, a_seeds=a_seeds,
-                    a_pos=a_pos, a_len=a_len, side=side):
-                return fn(p, ln, tab, gm.to(p.device, non_blocking=True),
-                          cm.to(p.device, non_blocking=True), a_seeds,
-                          a_pos, a_len, **side, **kw,
-                          **dict(zip(budgets, args)))
+            def run(*args, p=p, ln=ln, tables=tables):
+                inputs = dict(packed=p, lens=ln,
+                              gate_min=gm.to(p.device, non_blocking=True),
+                              chain_min=cm.to(p.device, non_blocking=True))
+                return captured.run(fn, inputs, tables, **kw,
+                                    **dict(zip(budgets, args)))
             out.append(Pending(lo + blo, p.device, run,
                                tuple(budgets.values()), keep, fetch))
         return out
+
+    def _rerun_budget(self, kind: str, n_ok: int) -> int:
+        """The pair budget of a ``kind`` block's re-run at collect after
+        it passed ``n_ok`` pairs: ``_tight`` of the most any re-run of
+        the kind has needed.  It covers every passing pair, so the rows
+        are the JAX collect's unbudgeted re-run's, and it settles, so the
+        re-runs replay one captured graph."""
+        b = max(self._rerun_at.get(kind, 0), _tight(n_ok))
+        self._rerun_at[kind] = b
+        return b
+
+    def _upload_bucketed(self, windows, W: int, keep: list):
+        """``upload`` with the rows padded to the batch's shape bucket
+        (``captured.padded_rows``): padding rows have no k-mers, so they
+        pass no gate."""
+        packed, lens = _pack_windows(windows, W, self.k)
+        nb = captured.padded_rows(len(windows), self._grid.shape["data"])
+        return (self._put(captured.pad_rows(packed, nb, 0), keep),
+                self._put(captured.pad_rows(lens, nb, 0), keep),
+                len(windows))
 
     # -- per batch ------------------------------------------------------
     def upload(self, windows, W: int, keep: list = None):
@@ -585,7 +621,8 @@ class WindowChainEngine:
             return [(len(windows), None)]
         futures = []
         for lo in range(0, len(windows), batch):
-            km_dev, lens_dev, n = self.upload(windows[lo:lo + batch], W, keep)
+            km_dev, lens_dev, n = self._upload_bucketed(
+                windows[lo:lo + batch], W, keep)
             futures.append((n, self._pending(
                 km_dev, lens_dev, 0, _fused_edge_verdict, front, gm, cm,
                 dict(pair_budget=pair_budget), keep, _edge_fetch,
@@ -596,8 +633,9 @@ class WindowChainEngine:
         """([n, 4] int32 rows of (found, best_match, earliest, latest),
         per-adapter chain-count totals [num_adapters]).  A block whose
         gate-passing count exceeds its pair budget re-runs over every
-        passing pair (a budget of the count: what the JAX collect's
-        unbudgeted re-run chains, without the failing pairs' slots)."""
+        passing pair (at ``_rerun_budget``, which holds them all: what the
+        JAX collect's unbudgeted re-run chains, without the failing pairs'
+        slots)."""
         rows = []
         counts = np.zeros(num_adapters, np.int64)
         for n, blocks in futures:
@@ -610,7 +648,7 @@ class WindowChainEngine:
                 budget, n_ok = p.args[0], int(cnt[0])
                 if budget and n_ok > budget:
                     self.reruns["edge"] += 1
-                    v, c, cnt = p.rerun(n_ok)
+                    v, c, cnt = p.rerun(self._rerun_budget("edge", n_ok))
                 parts[p.lo] = (v, c)
             parts = self._grid.gather(parts)
             rows.append(np.concatenate([v for v, _ in parts])[:n])
@@ -633,7 +671,8 @@ class WindowChainEngine:
             return np.zeros(0, np.int32)
         blocks = []
         for lo in range(0, len(windows), batch):
-            km_dev, lens_dev, _ = self.upload(windows[lo:lo + batch], W, keep)
+            km_dev, lens_dev, _ = self._upload_bucketed(
+                windows[lo:lo + batch], W, keep)
             blocks += self._pending(
                 km_dev, lens_dev, lo, _fused_enable, front, gm, cm,
                 dict(pair_budget=pair_budget), keep, _edge_fetch, k=self.k,
@@ -645,7 +684,7 @@ class WindowChainEngine:
             n_ok = int(cnt[0])
             if pair_budget and n_ok > pair_budget:
                 self.reruns["enable"] += 1
-                covs, cnt = p.rerun(n_ok)
+                covs, cnt = p.rerun(self._rerun_budget("enable", n_ok))
             parts[p.lo] = covs
         for covs in self._grid.gather(parts):
             out = np.maximum(out, covs)
@@ -659,8 +698,8 @@ class WindowChainEngine:
         """Upload interior windows + enqueue the detection scan against the
         front adapters (the middle pass uses only those)."""
         keep = []
-        uploads = [self.upload(windows[lo:lo + batch], W, keep) + (lo,)
-                   for lo in range(0, len(windows), batch)]
+        uploads = [self._upload_bucketed(windows[lo:lo + batch], W, keep)
+                   + (lo,) for lo in range(0, len(windows), batch)]
         return self.window_verdict_dispatch_packed(
             uploads, gate_min, chain_min, mid_threshold, W, top_t,
             pair_budget, det_budget, keep)
@@ -696,10 +735,11 @@ class WindowChainEngine:
         """Window detections: [(window idx, adapter idx, start,
         identity)] int32 rows, window indices global across batches.  As
         the JAX collect: a block over its pair budget re-runs over every
-        passing pair (its count as the budget: the pairs the JAX
-        unbudgeted re-run chains that can detect anything); one whose
+        passing pair (at ``_rerun_budget``, which covers every pair the
+        JAX unbudgeted re-run chains that can detect anything); one whose
         detections overflow ``det_budget`` re-runs so at ``4 *
-        det_budget`` and keeps that run's first rows."""
+        det_budget`` (at a pair budget that holds every passing pair) and
+        keeps that run's first rows."""
         parts = {}
         for p in futures:
             pair_budget, det_budget = p.args
@@ -707,10 +747,11 @@ class WindowChainEngine:
             n_ok = int(arr[-1, 0])      # 0 when the block ran unbudgeted
             if pair_budget and n_ok > pair_budget:
                 self.reruns["middle_pair_budget"] += 1
-                (arr,) = p.rerun(n_ok, det_budget)
+                (arr,) = p.rerun(self._rerun_budget("middle", n_ok),
+                                 det_budget)
             if int(arr[-1, 1]) > arr.shape[0] - 1:
                 self.reruns["middle_det_budget"] += 1
-                (arr,) = p.rerun(n_ok, 4 * det_budget)
+                (arr,) = p.rerun(p.args[0], 4 * det_budget)
             rows = arr[:-1]
             rows = rows[rows[:, 0] >= 0]
             rows[:, 0] += p.lo

@@ -18,11 +18,12 @@ Decision logic (thresholds, barcode precedence, +-5%% ambiguity, pair
 requirements) follows the reference exactly, as the JAX trimmer does.
 Dropped from the JAX trimmer: its helpers that nothing calls
 (``_match_edges``, ``_edge_dispatch``, ``_dispatch_windows``,
-``_collect_windows``, ``_match_windows``, ``_window_detections``), batch
-buckets and the middle pass's rotating staging buffers.  The engine's
-budgets are the JAX trimmer's: 16,384 gate-passing pairs an edge batch,
-one for every 4 windows (at least 4,096) and 4,096 detections a middle
-batch.
+``_collect_windows``, ``_match_windows``, ``_window_detections``) and
+the middle pass's rotating staging buffers.  Its batch buckets are kept
+(``captured.padded_rows``): the engine replays one captured graph per
+bucket.  The engine's budgets are the JAX trimmer's: 16,384 gate-passing
+pairs an edge batch, one for every 4 windows of the bucket (at least
+4,096) and 4,096 detections a middle batch.
 With a device grid (``mesh``) every window batch splits over the grid's
 data shards.
 """
@@ -38,6 +39,7 @@ import numpy as np
 
 from .. import resolve_device
 from ..core.sequence import Sequence
+from ..ops import captured
 from ..ops.window_engine import WindowChainEngine
 from ..seeds import SeedIndex
 
@@ -494,14 +496,13 @@ class _MidStream:
         if self.count == 0:
             return
         n = self.count
-        nb = n
-        if self.t.mesh is not None:
-            # the batch divides across the data axis: zero rows (no
-            # k-mers) up to a multiple of it, as far as the buffer goes
-            D = self.t.mesh.shape["data"]
-            nb = min(-(-n // D) * D, self.window_batch)
-            self.rows[n:nb] = 0
-            self.lens[n:nb] = 0
+        # zero rows (no k-mers) up to the batch's shape bucket, a multiple
+        # of the grid's data axis, as far as the buffer goes (the JAX
+        # stream's bucket)
+        D = self.t.mesh.shape["data"] if self.t.mesh is not None else 1
+        nb = min(captured.padded_rows(n, D), self.window_batch)
+        self.rows[n:nb] = 0
+        self.lens[n:nb] = 0
         keep = []
         up = self.eng.upload_rows(self.rows[:nb], self.lens[:nb], n, keep)
         # budget the chain DP to 1 gate-passing pair per 4 windows (the

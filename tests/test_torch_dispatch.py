@@ -24,7 +24,7 @@ import torch
 
 from downpore_tpu.ops.map_engine import MapEngine as JaxEngine
 from downpore_tpu.overlap import Overlapper as JaxOverlapper
-from downpore_tpu_torch.ops import cuda_chain, map_engine as tme
+from downpore_tpu_torch.ops import captured, cuda_chain, map_engine as tme
 from downpore_tpu_torch.ops import window_engine as twe
 from downpore_tpu_torch.ops.transfer import Pending
 from downpore_tpu_torch.overlap import Overlapper as TorchOverlapper
@@ -172,8 +172,9 @@ def test_map_budget_follows_the_last_count(mappers):
 @pytest.mark.parametrize("n_data,n_seed", [(4, 1), (2, 2)])
 def test_grid_map_dispatch_matches_jax(mappers, n_data, n_seed):
     """A data grid and a seed-sharded grid of CPU entries, each block at a
-    budget of 3 pairs: every block re-runs, and the rows equal the
-    unsharded JAX engine's."""
+    budget of 3 pairs: every block that holds query rows re-runs (the
+    blocks past them hold only the row bucket's padding, which passes
+    nothing), and the rows equal the unsharded JAX engine's."""
     genome, jm, _ = mappers
     te = tme.MapEngine(jm.index, K, nq=64, nt=320, lean=True,
                        mesh=make_mesh(n_data, n_seed,
@@ -184,7 +185,9 @@ def test_grid_map_dispatch_matches_jax(mappers, n_data, n_seed):
                                       pair_budget=3)
     np.testing.assert_array_equal(h_r, h_g)
     np.testing.assert_array_equal(p_r, p_g)
-    assert te.reruns["pair_budget"] == n_data
+    M = packed[0].shape[0]
+    per_block = captured.padded_rows(M, n_data) // n_data
+    assert te.reruns["pair_budget"] == -(-M // per_block)
 
 
 @pytest.mark.parametrize("route", ["_fused_map_bd", "_fused_map_bc"])

@@ -800,9 +800,10 @@ def random_genome(rng, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["flat", "binned", "seed_sharded"])
 def test_map_dispatch_does_not_wait_on_card(cuda_device, monkeypatch, case):
-    """A map dispatch (after one warm dispatch) enqueues and returns under
-    ``set_sync_debug_mode("error")``, at a budget of 4 pairs; its collect
-    re-runs and equals the CPU engine's rows."""
+    """A map dispatch (after one warm dispatch at the same budget, which
+    captures its graph: a capture waits for the card) enqueues and returns
+    under ``set_sync_debug_mode("error")``, at a budget of 4 pairs; its
+    collect re-runs and equals the CPU engine's rows."""
     from downpore_tpu_torch.mapping import Mapper
     from downpore_tpu_torch.ops import map_engine
     from downpore_tpu_torch.parallel import make_mesh
@@ -830,6 +831,8 @@ def test_map_dispatch_does_not_wait_on_card(cuda_device, monkeypatch, case):
         packed = eng.pack_query_windows(windows)
         base_min = np.maximum(5, packed[6] // 5).astype(np.int32)
         eng.collect_arrays_many([eng.dispatch_packed(packed, base_min)])
+        eng.collect_arrays_many([eng.dispatch_packed(packed, base_min,
+                                                     pair_budget=4)])
         eng.reruns.clear()
         with (sync_errors() if dev.type == "cuda"
               else contextlib.nullcontext()):
@@ -845,7 +848,8 @@ def test_map_dispatch_does_not_wait_on_card(cuda_device, monkeypatch, case):
 @pytest.mark.cuda
 def test_overlap_dispatch_does_not_wait_on_card(cuda_device):
     """An overlap engine's sub-batch dispatch at a budget of 4 pairs under
-    ``set_sync_debug_mode("error")``; collect equals the CPU engine's."""
+    ``set_sync_debug_mode("error")``, after one warm dispatch at that
+    budget (its capture); collect equals the CPU engine's."""
     from downpore_tpu_torch.core import Sequence
     from downpore_tpu_torch.overlap import QUERY_EDGES, Overlapper
     from downpore_tpu_torch.ops.map_engine import MapEngine
@@ -874,6 +878,8 @@ def test_overlap_dispatch_does_not_wait_on_card(cuda_device):
         base_min = np.array([int(0.25 * q.num_seeds + 0.5) for q in sq],
                             np.int32)
         eng.collect_chains(eng.dispatch_chains(sq, base_min))
+        eng.collect_chains(eng.dispatch_chains(sq, base_min, pair_budget=4))
+        eng.reruns.clear()
         with (sync_errors() if dev.type == "cuda"
               else contextlib.nullcontext()):
             futs = eng.dispatch_chains(sq, base_min, pair_budget=4)
@@ -886,7 +892,8 @@ def test_overlap_dispatch_does_not_wait_on_card(cuda_device):
 def test_trim_dispatch_does_not_wait_on_card(cuda_device):
     """The edge verdict (at 8 pairs) and the middle-pass upload and
     dispatch (at 8 pairs and 2 detections) under
-    ``set_sync_debug_mode("error")``; their collects re-run and equal the
+    ``set_sync_debug_mode("error")``, each after one warm dispatch at
+    those budgets (their captures); their collects re-run and equal the
     CPU engine's."""
     from downpore_tpu_torch.ops import window_engine as we
     from downpore_tpu_torch.trim import FRONT_ADAPTERS, load_trimmer
@@ -904,8 +911,8 @@ def test_trim_dispatch_does_not_wait_on_card(cuda_device):
         p, lens = we._pack_windows(mids, 512 - t.k + 1, t.k)
         eng.edge_verdict_collect(eng.edge_verdict_dispatch(
             fronts, True, gm, cm, W), len(gm))
-        with (sync_errors() if dev.type == "cuda"
-              else contextlib.nullcontext()):
+
+        def dispatch():
             edge = eng.edge_verdict_dispatch(fronts, True, gm, cm, W,
                                              pair_budget=8)
             keep = []
@@ -913,6 +920,14 @@ def test_trim_dispatch_does_not_wait_on_card(cuda_device):
                 [eng.upload_rows(p, lens, len(mids), keep) + (0,)], mm, mm,
                 t.mid_threshold, 512 - t.k + 1, pair_budget=8,
                 det_budget=2, keep=keep)
+            return edge, mid
+        edge, mid = dispatch()
+        eng.edge_verdict_collect(edge, len(gm))
+        eng.window_verdict_collect(mid)
+        eng.reruns.clear()
+        with (sync_errors() if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            edge, mid = dispatch()
         out.append((eng.edge_verdict_collect(edge, len(gm)),
                     eng.window_verdict_collect(mid)))
         assert eng.reruns["edge"] == 1 and eng.reruns["middle_det_budget"]
@@ -921,3 +936,171 @@ def test_trim_dispatch_does_not_wait_on_card(cuda_device):
     np.testing.assert_array_equal(c_g, c_c)
     np.testing.assert_array_equal(d_g, d_c)
     assert v_g[:, 0].sum() >= 50 and len(d_g) == 8
+
+
+# -- the dispatch blocks captured as CUDA graphs ------------------------------
+GRAPH_CASES = {
+    # case: the route captured
+    "map_d": "_fused_map_d", "map_c": "_fused_map_c",
+    "map_bd": "_fused_map_bd", "map_bc": "_fused_map_bc",
+    "overlap_d": "_fused_overlap_d", "overlap": "_fused_overlap",
+    "edge": "_fused_edge_verdict", "enable": "_fused_enable",
+    "middle": "_fused_window_verdict",
+}
+
+
+def graph_case(case, dev, monkeypatch):
+    """Drive one dispatch and collect of ``case``'s route on ``dev``."""
+    from downpore_tpu_torch.core import Sequence
+    from downpore_tpu_torch.mapping import Mapper
+    from downpore_tpu_torch.ops import map_engine
+    from downpore_tpu_torch.ops.map_engine import MapEngine
+    from downpore_tpu_torch.overlap import QUERY_EDGES, Overlapper
+    from downpore_tpu_torch.seeds import SeedIndex
+    from downpore_tpu_torch.trim import FRONT_ADAPTERS, load_trimmer
+    from downpore_tpu_torch.utils import kmer_occurrences, score_seed_values
+
+    rng = np.random.default_rng(36)
+    if case.startswith("map"):
+        if case.startswith("map_b"):
+            monkeypatch.setattr(map_engine, "_BINNED_MIN_C", 16)
+            monkeypatch.setattr(map_engine, "_BINNED_CB", 8)
+        genome = random_genome(rng, 120_000)
+        values = score_seed_values(kmer_occurrences([genome], 11), 11)
+        eng = Mapper(genome, False, 11, values, 40, 1000, 2000,
+                     device=dev).engine
+        wins = []
+        for _ in range(150):          # 300 rows: off the row ladder
+            p = int(rng.integers(0, 115_000))
+            wins.append(genome.subsequence(p, p + 1000))
+        packed = eng.pack_query_windows(wins)
+        base_min = np.maximum(5, packed[6] // 5).astype(np.int32)
+        if case in ("map_c", "map_bc"):
+            packed = packed[:6]
+        eng.collect_arrays_many([eng.dispatch_packed(packed, base_min)])
+    elif case.startswith("overlap"):
+        genome = random_genome(rng, 60_000)
+        reads = []
+        for i in range(40):
+            p = int(rng.integers(0, 54_000))
+            codes = genome.codes[p:p + 6000].copy()
+            reads.append(Sequence(codes, id=i, name=f"r{i}"))
+        values = score_seed_values(kmer_occurrences(reads, 10), 10)
+        ov = Overlapper(SeedIndex(10), 10000, 1000, 10, 0.25, device=dev)
+        queries = ov.prepare_queries(15, 10000, values, iter(reads[:16]),
+                                     QUERY_EDGES)
+        ov.add_sequences(iter(reads))
+        ov.index.index_sequences()
+        eng = MapEngine(ov.index, 10, nq=128 if case == "overlap_d" else 16,
+                        nt=256, device=dev)
+        sq = [q.query for q in queries]
+        base_min = np.array([int(0.25 * q.num_seeds + 0.5) for q in sq],
+                            np.int32)
+        eng.collect_chains(eng.dispatch_chains(sq, base_min))
+    else:
+        t = load_trimmer("", "", 6, verbosity=0, device=dev)
+        eng = t._engine()
+        W = t.WINDOW - t.k + 1
+        gm, cm = t._edge_mins(t.front_sets)
+        if case == "edge":
+            fronts = trim_windows(rng, 300, 150, FRONT_ADAPTERS)
+            eng.edge_verdict_collect(eng.edge_verdict_dispatch(
+                fronts, True, gm, cm, W), len(gm))
+        elif case == "enable":
+            fronts = trim_windows(rng, 300, 150, FRONT_ADAPTERS)
+            eng.enable_covs(fronts, True, gm, cm, W)
+        else:
+            mids = trim_windows(rng, 300, 512, FRONT_ADAPTERS)
+            mm = t._mid_min_matches()
+            eng.window_verdict_collect(eng.window_verdict_dispatch(
+                mids, mm, mm, t.mid_threshold, 512 - t.k + 1))
+
+
+def recorded_runs(monkeypatch):
+    """A fresh graph cache that the engines' ``captured.run`` goes
+    through, and the list of its calls ``(fn, inputs, tables,
+    statics)``."""
+    from downpore_tpu_torch.ops import captured
+    cache = captured.GraphCache()
+    calls = []
+
+    def run(fn, inputs, tables=None, **statics):
+        calls.append((fn, inputs, tables or {}, statics))
+        return cache.run(fn, inputs, tables, **statics)
+    monkeypatch.setattr(captured, "run", run)
+    return cache, calls
+
+
+def outputs(res):
+    return (res,) if torch.is_tensor(res) else tuple(res)
+
+
+def rolled(inputs, shift):
+    """Per-dispatch inputs of another dispatch of the same key: every
+    tensor's rows rolled by ``shift``."""
+    return {n: torch.roll(t, shift, dims=0) for n, t in inputs.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_captured_replay_matches_eager_on_card(cuda_device, monkeypatch,
+                                               case):
+    """Each route's block, captured at its first dispatch, replays bit for
+    bit what the function computes when called directly, and each replay
+    adds the chain launches the function makes to ``chain_scan.launches``."""
+    cache, calls = recorded_runs(monkeypatch)
+    graph_case(case, cuda_device, monkeypatch)
+    fn, inputs, tables, statics = next(c for c in calls
+                                       if c[0].__name__ == GRAPH_CASES[case])
+    assert len(cache.entries) >= 1
+    for shift in (0, 5):
+        ins = rolled(inputs, shift)
+        before = cuda_chain.chain_scan.launches
+        got = outputs(cache.run(fn, ins, tables, **statics))
+        replay_launches = cuda_chain.chain_scan.launches - before
+        before = cuda_chain.chain_scan.launches
+        ref = outputs(fn(**ins, **tables, **statics))
+        assert replay_launches == cuda_chain.chain_scan.launches - before
+        assert replay_launches >= 1
+        torch.cuda.synchronize()
+        assert len(got) == len(ref)
+        for g, r in zip(got, ref):
+            assert g.dtype == r.dtype and torch.equal(g, r)
+    assert sum(e.replays for e in cache.entries.values()) >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["map_d", "overlap_d", "middle"])
+def test_captured_replays_in_flight_on_card(cuda_device, monkeypatch, case):
+    """Three replays of one key enqueued before any is read do not
+    overwrite each other's outputs: each equals the function on its own
+    inputs."""
+    cache, calls = recorded_runs(monkeypatch)
+    graph_case(case, cuda_device, monkeypatch)
+    fn, inputs, tables, statics = next(c for c in calls
+                                       if c[0].__name__ == GRAPH_CASES[case])
+    n = len(cache.entries)
+    ins = [rolled(inputs, s) for s in (1, 2, 3)]
+    got = [outputs(cache.run(fn, i, tables, **statics)) for i in ins]
+    assert len(cache.entries) == n
+    for i, g in zip(ins, got):
+        for a, b in zip(g, outputs(fn(**i, **tables, **statics))):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_capture_of_a_host_read_raises_on_card(cuda_device):
+    """A block that reads the card back cannot be captured: the capture
+    raises (its warm-up ran eagerly) and nothing is cached."""
+    from downpore_tpu_torch.ops import captured
+    cache = captured.GraphCache()
+
+    def reads_back(x):
+        return x * int(x.sum())
+
+    x = torch.arange(8, device=cuda_device)
+    with pytest.raises(Exception):
+        cache.run(reads_back, dict(x=x))
+    torch.cuda.synchronize()
+    assert not cache.entries
+    assert int(x.sum()) == 28
