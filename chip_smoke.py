@@ -120,8 +120,12 @@ Phases (any failure ends the run with a non-zero exit):
    nodes a graph, capture ms, the distinct pair budgets), host ms a
    dispatch and device span and busy ms replayed against the same blocks
    run eagerly, and the bytes of the graph pools and of the cache's
-   resident-table buffers; a path whose blocks go through the graphs must
-   replay, and capture nothing after its warm dispatches.  The overlap
+   resident-table buffers; every path, the seed-sharded 2 x 2 grid
+   included, must replay a graph at each ``captured.run`` call (its
+   collect's re-runs included), capture nothing after its warm
+   dispatches, and give in every replayed dispatch, taken after the
+   graphs' output buffers were filled with -3, the output of every eager
+   one.  The overlap
    phase prints the graphs each round captured and the resident tables
    it copied in: the later rounds with the first round's table shapes
    must capture fewer graphs in all than the first.  Every kernel launch
@@ -643,76 +647,142 @@ def _eager_run(fn, inputs, tables=None, **statics):
     return fn(**inputs, **(tables or {}), **statics)
 
 
-def _dispatch_times(dispatch, collect, reps: int) -> tuple:
-    """Median host ms of ``reps`` dispatches (each collected before the
-    next), the median device span of the work each enqueued (CUDA events
-    around the dispatch, read after its collect), and the device busy ms
-    of one dispatch + collect under torch.profiler."""
-    host, span = [], []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        t0 = time.perf_counter()
-        futs = dispatch(None)
-        host.append((time.perf_counter() - t0) * 1e3)
-        e1.record()
-        collect(futs)
-        e1.synchronize()
-        span.append(e0.elapsed_time(e1))
-    busy = _profiled_busy_ms(lambda: collect(dispatch(None)))
-    return float(np.median(host)), float(np.median(span)), busy
+def _same(a, b) -> bool:
+    """Whether two collected outputs (arrays, numbers, None, and tuples,
+    lists or dicts of them) are equal, dtypes and shapes included."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return (isinstance(a, np.ndarray) and isinstance(b, np.ndarray)
+                and a.dtype == b.dtype and a.shape == b.shape
+                and bool(np.array_equal(a, b)))
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_same(x, y) for x, y in zip(a, b)))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_same(a[k], b[k]) for k in a))
+    return a == b
 
 
-def phase_graphs(name: str, dispatch, collect, graphs: bool = True):
+def _poison_graph_outputs():
+    """Fill every captured graph's output buffers with a value no block
+    returns in full (-3; True in a mask), so that a replay whose work did
+    not run hands back the fill, not an earlier replay's result."""
+    from downpore_tpu_torch.ops import captured
+    with captured.GRAPHS._lock:
+        for e in captured.GRAPHS.entries.values():
+            for o in e.outputs:
+                o.fill_(True if o.dtype == torch.bool else -3)
+
+
+def _dispatch_times(dispatch, collect, reps: int, poison: bool) -> dict:
+    """``reps`` dispatches, each collected before the next, then one more
+    under torch.profiler: the median host ms of a dispatch (``host``), the
+    median device span of the work each enqueued (CUDA events around the
+    dispatch, read after its collect; ``span``), the median device time of
+    dispatch + collect, its re-runs included (CUDA events; ``total``), the
+    device busy ms of the profiled one (``busy``), the re-runs at collect
+    over all ``reps`` + 1 (``reruns``), the ``captured.run`` calls
+    (``runs``) and every collected output (``outs``).  With ``poison`` the
+    graphs' output buffers are filled before each dispatch
+    (``_poison_graph_outputs``)."""
+    from downpore_tpu_torch.ops import captured
+    host, span, total, outs = [], [], [], []
+    runs = []
+    run = captured.run
+
+    def counting(*a, **kw):
+        runs.append(1)
+        return run(*a, **kw)
+    with patched([(captured, "run", counting)]), counted_reruns() as reruns:
+        for _ in range(reps):
+            if poison:
+                _poison_graph_outputs()
+            torch.cuda.synchronize()
+            e0, e1, e2 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(3))
+            e0.record()
+            t0 = time.perf_counter()
+            futs = dispatch(None)
+            host.append((time.perf_counter() - t0) * 1e3)
+            e1.record()
+            outs.append(collect(futs))
+            e2.record()
+            e2.synchronize()
+            span.append(e0.elapsed_time(e1))
+            total.append(e0.elapsed_time(e2))
+        if poison:
+            _poison_graph_outputs()
+        busy = _profiled_busy_ms(lambda: outs.append(collect(dispatch(None))))
+    return dict(host=float(np.median(host)), span=float(np.median(span)),
+                total=float(np.median(total)), busy=busy,
+                reruns=reruns["reruns"], runs=len(runs), outs=outs)
+
+
+def phase_graphs(name: str, dispatch, collect):
     """The capture / replay layer on one full-width path (``dispatch`` and
     ``collect`` as ``phase_dispatch`` takes them): the graphs the path's
-    keys hold (captures, replays, nodes a graph, capture ms, the distinct
-    budgets), host ms a dispatch and the device span and busy ms, replays
+    keys hold (captures, replays, nodes a graph, capture ms, replays by
+    pair budget), host ms a dispatch and the device span, dispatch +
+    collect time (CUDA events) and busy ms (torch.profiler), replays
     against the same blocks run eagerly (``captured.run`` patched to call
     them directly) in the same call, and the bytes of the graph pools and
-    of the cache's resident tables.  A path whose blocks go through the
-    graphs (``graphs``; the seed-sharded routes run eagerly) must replay,
-    and its measured dispatches must capture nothing."""
+    of the cache's resident tables.  The path must replay, capture nothing
+    after its warm dispatch, replay a graph at every ``captured.run`` call
+    of its measured dispatches (re-runs at collect included), and every
+    replayed dispatch's output, each taken after the graphs' output
+    buffers were poisoned, must equal every eager one's."""
     from downpore_tpu_torch.ops import captured
     G = captured.GRAPHS
     n_keys = len(G.entries)
     collect(dispatch(None))
     captured_now = len(G.entries) - n_keys
     before = _graph_replays()
-    rep = _dispatch_times(dispatch, collect, GRAPH_REPS)
+    rep = _dispatch_times(dispatch, collect, GRAPH_REPS, poison=True)
     after = _graph_replays()
     keys = [k for k, r in after.items() if r > before.get(k, 0)]
     with patched([(captured, "run", _eager_run)]):
-        eager = _dispatch_times(dispatch, collect, GRAPH_REPS)
+        eager = _dispatch_times(dispatch, collect, GRAPH_REPS, poison=False)
     stats = G.stats()
     mine = [stats[k] for k in keys]
-    row = {"name": name, "graphs": graphs, "keys": len(keys),
-           "captures": captured_now,
-           "replays": sum(after[k] - before.get(k, 0) for k in keys),
+    replays = sum(after[k] - before.get(k, 0) for k in keys)
+    by_budget = {}
+    for k in keys:
+        b = stats[k]["statics"].get("pair_budget")
+        by_budget[b] = by_budget.get(b, 0) + after[k] - before.get(k, 0)
+    ref = eager["outs"][0]
+    equal = all(_same(o, ref) for o in rep["outs"] + eager["outs"])
+    row = {"name": name, "keys": len(keys), "captures": captured_now,
+           "replays": replays, "runs": rep["runs"],
+           "replays_by_budget": by_budget,
            "nodes": sorted(s["nodes"] for s in mine),
            "capture_ms": sorted(round(s["capture_ms"], 3) for s in mine),
-           "budgets": sorted({s["statics"].get("pair_budget")
-                              for s in mine}),
-           "replay": rep, "eager": eager, "pool_bytes": G.pool_bytes(),
-           "table_bytes": G.table_bytes()}
+           "replay": rep, "eager": eager, "equal": equal,
+           "pool_bytes": G.pool_bytes(), "table_bytes": G.table_bytes()}
     GRAPH_ROWS.append(row)
     log(f"phase_graphs {name}: {row['keys']} keys replayed "
         f"({captured_now} captured by its warm dispatch), "
-        f"{row['replays']} replays in {GRAPH_REPS} dispatches; nodes a "
-        f"graph {row['nodes']}; capture ms {row['capture_ms']}; budgets "
-        f"{row['budgets']}; host ms a dispatch {rep[0]:.3f} replayed vs "
-        f"{eager[0]:.3f} eager; device span {rep[1]:.3f} vs {eager[1]:.3f} "
-        f"ms; device busy {rep[2]:.3f} vs {eager[2]:.3f} ms; graph pools "
+        f"{replays} replays for {rep['runs']} captured.run calls in "
+        f"{GRAPH_REPS + 1} dispatches (replays by pair budget {by_budget}; "
+        f"re-runs at collect {rep['reruns']} replayed, {eager['reruns']} "
+        f"eager); nodes a graph {row['nodes']}; capture ms "
+        f"{row['capture_ms']}; host ms a dispatch {rep['host']:.3f} "
+        f"replayed vs {eager['host']:.3f} eager; device span "
+        f"{rep['span']:.3f} vs {eager['span']:.3f} ms; dispatch + collect "
+        f"(CUDA events) {rep['total']:.3f} vs {eager['total']:.3f} ms; "
+        f"device busy (profiler) {rep['busy']:.3f} vs {eager['busy']:.3f} "
+        f"ms; every replayed output equal to the eager ones (graph outputs "
+        f"poisoned before each replayed dispatch): {equal}; graph pools "
         f"{row['pool_bytes']} bytes, resident-table buffers "
-        f"{row['table_bytes']} bytes (all graphs so far: "
-        f"{len(G.entries)})")
-    if graphs and (not row["replays"] or len(G.entries) != n_keys
-                   + captured_now):
-        raise SystemExit(f"phase_graphs {name}: {row['replays']} replays, "
+        f"{row['table_bytes']} bytes (all graphs so far: {len(G.entries)})")
+    if not replays or replays != rep["runs"] or len(G.entries) != n_keys \
+            + captured_now:
+        raise SystemExit(f"phase_graphs {name}: {replays} replays for "
+                         f"{rep['runs']} captured.run calls, "
                          f"{len(G.entries) - n_keys - captured_now} "
                          f"captures after the warm dispatch")
+    if not equal:
+        raise SystemExit(f"phase_graphs {name}: a replayed dispatch's output "
+                         f"differs from the eager one's")
     return row
 
 
@@ -732,7 +802,7 @@ def map_dispatch_case(name: str, mapper, reads):
     row = phase_dispatch(
         name, dispatch, collect,
         lambda f: max(int(p.host.wait()[0][0]) for p in f[1]))
-    phase_graphs(name, dispatch, collect, graphs=not eng.seed_sharded)
+    phase_graphs(name, dispatch, collect)
     return row
 
 
@@ -2360,8 +2430,7 @@ def phase_grid(mapper, reads, dev):
                          "mapper's")
     map_dispatch_case("map 4.6 Mb on the 2 x 2 grid (one card)", gm, reads)
     del gm, eng, warm, results
-    # a data grid: each data block is its own graph (the 2 x 2 grid's
-    # seed shards run eagerly)
+    # a data grid without a seed axis: both data blocks replay one key
     dp = copy.copy(mapper)
     dp.mesh = make_mesh(n_data=2, n_seed=1, devices=[dev] * 2)
     dp._build_device_index()
@@ -2831,12 +2900,14 @@ def main() -> int:
                          f"cases, not {len(DISPATCH_CASES)}")
     from downpore_tpu_torch.ops import captured
     log("phase_graphs, every path (keys / replays / host ms replayed vs "
-        "eager / device busy ms replayed vs eager / pool bytes): "
+        "eager / dispatch + collect ms (CUDA events) replayed vs eager / "
+        "device busy ms replayed vs eager / outputs equal / pool bytes): "
         + "; ".join(
             f"{r['name']} {r['keys']} / {r['replays']} / "
-            f"{r['replay'][0]:.3f} vs {r['eager'][0]:.3f} / "
-            f"{r['replay'][2]:.3f} vs {r['eager'][2]:.3f} / "
-            f"{r['pool_bytes']}" for r in GRAPH_ROWS))
+            f"{r['replay']['host']:.3f} vs {r['eager']['host']:.3f} / "
+            f"{r['replay']['total']:.3f} vs {r['eager']['total']:.3f} / "
+            f"{r['replay']['busy']:.3f} vs {r['eager']['busy']:.3f} / "
+            f"{r['equal']} / {r['pool_bytes']}" for r in GRAPH_ROWS))
     by_route = {}
     for st in captured.GRAPHS.stats().values():
         c, rp, nodes = by_route.get(st["route"], (0, 0, 0))

@@ -33,7 +33,10 @@ a. Resident tables (membership, chunk seed tables, adapter tables) are
    tensor passed differs from the one copied last (another object, or the
    same one modified in place), so an overlap job, which builds a new
    engine every round, copies its tables once a round and captures
-   nothing new while their shapes hold.
+   nothing new while their shapes hold.  Tables of one shape that are
+   different data at once (the seed shards' membership blocks) go by
+   different names, so each has a buffer of its own and none is copied
+   in at every call.
 b. Budgets are statics, so a budget that moved at every dispatch would be
    a new key each time.  The engines give the key budgets that settle:
    the map budget follows the running maximum of the collected counts,

@@ -35,7 +35,10 @@ rows that never pass the gate, and each block runs through
 ``captured.run``: on a card it is captured once per (route, bucket,
 budgets, statics, table shapes) as a CUDA graph and replayed after, the
 counterpart of the JAX engine's ``jax.jit`` per shape.  The seed-sharded
-routes, whose partial counts cross devices, run eagerly.
+routes are a graph per seed shard's partial count (on its card) and one
+for the tail on the data shard's card; the partial counts' copies
+between cards and their sum stay eager, since a graph stays on one
+device.
 
 At ``_BINNED_MIN_C`` chunks or more a ``binned=True`` engine takes the
 two-level gate instead (``_binned_gate``): chunks are permuted into
@@ -155,26 +158,38 @@ def _count_rows_pair(membership, rb, db):
     return c, d
 
 
+def _shard_counts(buckets, *, lo: int, **block):
+    """One seed shard's partial retrieval counts: ``block`` holds its one
+    membership row block (named after the shard, so that each shard's
+    block is a table of its own in the graph cache), rows ``lo`` on of the
+    full membership; the query buckets that fall in its range (``rel = b
+    - lo``, live when ``0 <= rel < H_loc``) are counted, the rest are
+    not."""
+    (m_local,) = block.values()
+    rel = buckets - lo
+    live = (buckets >= 0) & (rel >= 0) & (rel < m_local.shape[0])
+    return _count_rows(m_local, torch.where(live, rel, -1))
+
+
 def sharded_counts(mem_blocks, buckets, device):
     """Seed-sharded retrieval counts (the JAX engine's
     ``make_sharded_counts``): ``mem_blocks`` are the membership's row
-    blocks in order, one per seed shard and on its device; each counts the
-    query buckets that fall in its row range (``rel = b - lo``, live when
-    ``0 <= rel < H_loc``), and the int32 partial counts are summed on
-    ``device``.  The copies between cards do not wait on the host: each
-    seed shard's count is enqueued on its own card."""
+    blocks in order, one per seed shard and on its device; each shard's
+    partial count (``_shard_counts``, through ``captured.run``: a graph
+    per shard, keyed by its row offset ``lo``) is enqueued on its own
+    card, and the int32 partial counts are copied to ``device`` and summed
+    there eagerly, without waiting on the host."""
     total = None
     lo = 0
-    for m_local in mem_blocks:
-        H_loc = m_local.shape[0]
+    for s, m_local in enumerate(mem_blocks):
         with on_device(m_local.device):
-            b = buckets.to(m_local.device, non_blocking=True)
-            rel = b - lo
-            live = (b >= 0) & (rel >= 0) & (rel < H_loc)
-            part = _count_rows(m_local, torch.where(live, rel, -1))
+            part = captured.run(
+                _shard_counts,
+                dict(buckets=buckets.to(m_local.device, non_blocking=True)),
+                {f"mem_block{s}": m_local}, lo=lo)
         part = part.to(device, non_blocking=True)
         total = part if total is None else total + part
-        lo += H_loc
+        lo += m_local.shape[0]
     return total
 
 
@@ -1079,8 +1094,8 @@ class MapEngine:
                         budget: int, BB: int):
         """One data shard's fused map pipeline on its device, at ``budget``
         pairs (and width ``BB``, binned): ``(head, packed16, n_ok[,
-        n_bin])`` on the device, through ``captured.run`` (the
-        seed-sharded route eagerly)."""
+        n_bin])`` on the device, through ``captured.run`` (seed-sharded:
+        each shard's counts, then the tail from the summed counts)."""
         inputs = {n: q[n] for n in ("q_pos", "min_count", "base_min",
                                     "q_len", "q_seeds")}
         tables = dict(t_seeds=tabs["t_seeds"], t_pos=tabs["t_pos"])
@@ -1088,10 +1103,10 @@ class MapEngine:
                        lean=self.lean)
         if route == "_map_from_counts":
             dev = tabs["device"]
-            return _map_from_counts(
-                sharded_counts(tabs["mem_blocks"], q["q_rb"], dev),
-                sharded_counts(tabs["mem_blocks"], q["q_db"], dev),
-                **inputs, **tables, **statics)
+            inputs.update(
+                counts=sharded_counts(tabs["mem_blocks"], q["q_rb"], dev),
+                dcounts=sharded_counts(tabs["mem_blocks"], q["q_db"], dev))
+            return captured.run(_map_from_counts, inputs, tables, **statics)
         tables["membership"] = tabs["membership"]
         if route in ("_fused_map_d", "_fused_map_bd"):
             tables["usable"] = tabs["usable_dev"]
@@ -1278,18 +1293,19 @@ class MapEngine:
                        budget: int):
         """One data shard's fused overlap pipeline on its device, at
         ``budget`` pairs: ``(head, cq, ct, n_ok, n_keep, mx)`` on the
-        device, through ``captured.run`` (the seed-sharded route
-        eagerly)."""
+        device, through ``captured.run`` (seed-sharded: each shard's
+        counts, then the tail from the summed counts)."""
         inputs = {n: q[n] for n in ("q_pos", "min_count", "q_seeds",
                                     "base_min")}
         tables = dict(t_seeds=tabs["t_seeds"], t_pos=tabs["t_pos"])
         statics = dict(statics, pair_budget=budget)
         if route == "_overlap_from_counts":
             dev = tabs["device"]
-            return _overlap_from_counts(
-                sharded_counts(tabs["mem_blocks"], q["q_rb"], dev),
-                sharded_counts(tabs["mem_blocks"], q["q_db"], dev),
-                **inputs, **tables, **statics)
+            inputs.update(
+                counts=sharded_counts(tabs["mem_blocks"], q["q_rb"], dev),
+                dcounts=sharded_counts(tabs["mem_blocks"], q["q_db"], dev))
+            return captured.run(_overlap_from_counts, inputs, tables,
+                                **statics)
         tables["membership"] = tabs["membership"]
         if route == "_fused_overlap_d":
             tables["usable"] = tabs["usable_dev"]

@@ -48,9 +48,12 @@ by the dispatch's blocks), the resident copy of the thresholds, the
 ``lax.map`` segments and the one-hot picks.  So is
 the paired edge route (``_fused_edge_pair``, ``edge_pair_dispatch`` /
 ``edge_pair_collect`` and the front/back tables stacked for them):
-stacking bought the JAX engine one XLA call for both sides, but here it
-would be the two per-side verdicts plus stacked copies, so each side takes
-``edge_verdict_dispatch``.  Pairs that fail the gate chain nowhere: they
+stacking bought the JAX engine one XLA call for both sides, but here each
+side's block is already one graph replay, and a paired block saves no
+host time and ends later, since both sides are packed before its device
+work starts, where the front's device work runs beside the back's
+packing; so each side takes ``edge_verdict_dispatch``.  Pairs that fail
+the gate chain nowhere: they
 report the empty summary the JAX engine gives them.  Only
 ``_fused_match``, which returns every pair's summary row, chains them
 all.  ``chain`` and ``_chain_from_windows`` have no caller and are not

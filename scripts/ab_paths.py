@@ -3,6 +3,7 @@ of two case sets.
 
     mkdir -p _chipcopy/a && git archive <commit> | tar -x -C _chipcopy/a
     python3 scripts/ab_paths.py _chipcopy/a _chipcopy/b [--rounds 3]
+    python3 scripts/ab_paths.py _chipcopy/a _chipcopy/b --cases overlap_trim
     python3 scripts/ab_paths.py _chipcopy/a _chipcopy/b --cases beam \\
         [--rounds 2] [--jobs PKL] [--clocks]
 
@@ -31,6 +32,11 @@ end, and the chain DP through each tree's own entry points:
   middle batch profiled), whose own checks must pass and whose logs give
   the end-to-end numbers (map bases/s and medians, overlap and trim wall
   seconds, idle shares).
+
+``--cases overlap_trim``: the tree's ``phase_overlap`` and ``phase_trim``
+alone (their wall seconds, idle shares, and one overlap sub-batch's and
+one trim edge batch's dispatch host ms from their ``phase_dispatch`` and
+``phase_graphs`` lines).
 
 ``--cases beam``: the beam-consensus kernel.  First this script's own tree
 runs ``correct`` on the card on ``chip_smoke.correct_case()`` (2048 reads
@@ -63,6 +69,7 @@ tree, the range) is printed and written to ``summary.json`` there.
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
 import importlib.util
 import json
@@ -113,7 +120,23 @@ METRICS = (
     ("trim_middle_idle_share",
      r"^trim middle batch under torch\.profiler: .*?idle share ([\d.]+)",
      1, 0),
+    # one dispatch's host ms, as phase_dispatch and phase_graphs print it
+    ("overlap_dispatch_ms",
+     r"^phase_dispatch overlap round .*?; dispatch ([\d.]+) ms on the host",
+     1, 0),
+    ("overlap_dispatch_replayed_ms",
+     r"^phase_graphs overlap round .*?host ms a dispatch ([\d.]+) replayed",
+     1, 0),
+    ("trim_edge_dispatch_ms",
+     r"^phase_dispatch trim edge batch .*?; dispatch ([\d.]+) ms on the host",
+     1, 0),
+    ("trim_edge_dispatch_replayed_ms",
+     r"^phase_graphs trim edge batch .*?host ms a dispatch ([\d.]+) "
+     r"replayed", 1, 0),
 )
+# the metrics of the overlap_trim case set
+OVERLAP_TRIM = tuple(m for m in METRICS
+                     if m[0].startswith(("overlap_", "trim_")))
 BEAM_KERNEL = "beam_consensus_kernel"
 TURN_TIMEOUT = 1200    # seconds a turn may take
 
@@ -241,11 +264,32 @@ def paths_turn(tree: str, recipe) -> dict:
     return result
 
 
-def paths_summary(recs, trees, summary) -> None:
-    for key, *_ in METRICS:
+def overlap_trim_turn(tree: str, recipe) -> dict:
+    """The overlap and trim phases of ``tree`` alone."""
+    import torch
+    import chip_smoke as smoke
+    if not smoke.__file__.startswith(tree):
+        raise SystemExit(f"imported {smoke.__file__}, not {tree}'s")
+    dev = torch.device("cuda")
+    result = {"phase_s": {}}
+    for name in ("phase_overlap", "phase_trim"):
+        t0 = time.perf_counter()
+        got = getattr(smoke, name)(dev)
+        del got
+        result["phase_s"][name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    return result
+
+
+def metric_ranges(recs, trees, summary, metrics) -> None:
+    for key, *_ in metrics:
         for label in trees:
             vals = [r[key] for r in recs if r["tree"] == label]
             summary["range"][f"{key} {label}"] = [min(vals), max(vals)]
+
+
+def paths_summary(recs, trees, summary) -> None:
+    metric_ranges(recs, trees, summary, METRICS)
     for name in recs[0]["chain"]:
         digests = {r["chain"][name]["score_sha256"] for r in recs}
         if len(digests) != 1:
@@ -447,7 +491,11 @@ def clocks(tree: str) -> int:
 
 
 CASES = {"paths": (paths_turn, paths_summary),
+         "overlap_trim": (overlap_trim_turn, functools.partial(
+             metric_ranges, metrics=OVERLAP_TRIM)),
          "beam": (beam_turn, beam_summary)}
+# the log metrics each case set reads
+CASE_METRICS = {"paths": METRICS, "overlap_trim": OVERLAP_TRIM, "beam": ()}
 
 
 def turn(tree: str, cases: str) -> int:
@@ -474,13 +522,12 @@ def run_turn(tree: str, label: str, i: int, cases: str) -> dict:
         raise SystemExit(f"turn {i} ({label}, {tree}) failed with {rc}; "
                          f"see {log_path}:\n{text[-3000:]}")
     rec = {"turn": i, "tree": label, "seconds": time.perf_counter() - t0}
-    if cases == "paths":
-        for key, pat, g, which in METRICS:
-            found = list(re.finditer(pat, text, re.M))
-            if len(found) <= which:
-                raise SystemExit(f"turn {i} ({label}): no {key} in "
-                                 f"{log_path}")
-            rec[key] = float(found[which].group(g))
+    for key, pat, g, which in CASE_METRICS[cases]:
+        found = list(re.finditer(pat, text, re.M))
+        if len(found) <= which:
+            raise SystemExit(f"turn {i} ({label}): no {key} in "
+                             f"{log_path}")
+        rec[key] = float(found[which].group(g))
     rec.update(json.loads(re.search(r"^AB_RESULT (.*)$", text,
                                     re.M).group(1)))
     return rec

@@ -11,6 +11,8 @@ tolerance 0 (every quantity is an integer).
   nothing and collect drops them.
 * Three dispatches of one key in flight before any collect each give the
   JAX output.
+* The seed-sharded routes: a key per seed shard's partial count and one
+  for the tail, the same keys at every dispatch once the budget settled.
 
 On the CPU ``captured.run`` calls the block directly; the capture and the
 replays themselves are held on the card by ``tests/test_torch_kernels.py``.
@@ -226,3 +228,76 @@ def test_three_dispatches_of_one_key_in_flight_match_jax(mappers, reads,
             jeng.window_verdict_collect(jeng.window_verdict_dispatch(
                 m, mm, mm, jt.mid_threshold, MID_W)),
             teng.window_verdict_collect(f))
+
+
+# -- the seed-sharded routes --------------------------------------------------
+@pytest.mark.parametrize("path", ["map", "overlap"])
+def test_seed_sharded_routes_are_keyed(mappers, reads, recorded, path):
+    """On a 2 x 2 grid each dispatch runs one key per seed shard's partial
+    count (its row offset ``lo`` among the statics, its membership block a
+    table of its own) and one for the tail; once the first collect has
+    settled the map budget, every dispatch has the same keys, and each
+    result equals the unsharded engine's."""
+    from collections import Counter
+    from downpore_tpu_torch.parallel import make_mesh
+    grid = make_mesh(2, 2, ["cpu"] * 4)
+    if path == "map":
+        genome, jm, _ = mappers
+        packed, base_min = map_packed(jm, windows(genome, 150, 31))
+        engs = [tme.MapEngine(jm.index, K, nq=64, nt=320, lean=True,
+                              mesh=m, device=CPU) for m in (grid, None)]
+        run = lambda e: e.collect_arrays_many([e.dispatch_packed(
+            packed, base_min)])[0]
+        tail = "_map_from_counts"
+    else:
+        index, sq, base_min = overlap_queries(reads, 300)
+        engs = [tme.MapEngine(index, OV_K, nq=128, nt=256, mesh=m,
+                              device=CPU) for m in (grid, None)]
+        run = lambda e: e.query_chains(sq, base_min)
+        tail = "_overlap_from_counts"
+    sharded, plain = engs
+    ref = run(plain)
+    keys = []
+    for _ in range(3):
+        recorded.clear()
+        got = run(sharded)
+        keys.append(set(recorded))
+        if path == "map":
+            for r, g in zip(ref, got):
+                np.testing.assert_array_equal(r, g)
+        else:
+            assert got == ref
+    assert keys[1] == keys[2]
+    shard_keys = [{k for k in ks if k[0] is tme._shard_counts}
+                  for ks in keys]
+    assert shard_keys[0] == shard_keys[1] == shard_keys[2]
+    assert Counter(k[0].__name__ for k in keys[0]) == {"_shard_counts": 2,
+                                                      tail: 1}
+    HL = sharded._mem_shape[0] // 2
+    offsets = {dict(k[1])["lo"]: {n for n, _, _ in k[3]} for k in keys[0]
+               if k[0] is tme._shard_counts}
+    assert offsets == {0: {"mem_block0"}, HL: {"mem_block1"}}
+
+
+@pytest.mark.parametrize("shards", [1, 2, 3, 4])
+def test_sharded_counts_equal_the_whole_membership(recorded, shards):
+    """``sharded_counts`` over the membership split into ``shards`` row
+    blocks (uneven at 3) equals the count over the whole membership and a
+    numpy sum of the int8 rows, with dead (-1) buckets and buckets in
+    every block; each block's partial count is a key of its own, by its
+    row offset and its table's name."""
+    rng = np.random.default_rng(40 + shards)
+    H, C, M, R = 64, 24, 50, 12
+    mem = rng.integers(0, 2, (H, C), dtype=np.int8)
+    buckets = rng.integers(-1, H, (M, R)).astype(np.int32)
+    blocks = [torch.from_numpy(b) for b in np.array_split(mem, shards)]
+    got = tme.sharded_counts(blocks, torch.from_numpy(buckets), CPU)
+    whole = tme._count_rows(torch.from_numpy(mem), torch.from_numpy(buckets))
+    ref = np.where((buckets >= 0)[:, :, None], mem[buckets], 0).sum(
+        1, dtype=np.int32)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(whole.numpy(), ref)
+    starts = np.cumsum([0] + [len(b) for b in blocks[:-1]])
+    assert [(dict(k[1])["lo"], [n for n, _, _ in k[3]]) for k in recorded] \
+        == [(int(lo), [f"mem_block{s}"]) for s, lo in enumerate(starts)]

@@ -946,7 +946,11 @@ GRAPH_CASES = {
     "overlap_d": "_fused_overlap_d", "overlap": "_fused_overlap",
     "edge": "_fused_edge_verdict", "enable": "_fused_enable",
     "middle": "_fused_window_verdict",
+    "map_shard": "_shard_counts", "map_sharded": "_map_from_counts",
+    "overlap_sharded": "_overlap_from_counts",
 }
+# the routes whose block launches no chain kernel
+NO_CHAIN = ("_shard_counts",)
 
 
 def graph_case(case, dev, monkeypatch):
@@ -956,11 +960,14 @@ def graph_case(case, dev, monkeypatch):
     from downpore_tpu_torch.ops import map_engine
     from downpore_tpu_torch.ops.map_engine import MapEngine
     from downpore_tpu_torch.overlap import QUERY_EDGES, Overlapper
+    from downpore_tpu_torch.parallel import make_mesh
     from downpore_tpu_torch.seeds import SeedIndex
     from downpore_tpu_torch.trim import FRONT_ADAPTERS, load_trimmer
     from downpore_tpu_torch.utils import kmer_occurrences, score_seed_values
 
     rng = np.random.default_rng(36)
+    # the seed-sharded cases: a 1 x 2 grid, both seed shards on the card
+    grid = make_mesh(1, 2, [dev] * 2) if "shard" in case else None
     if case.startswith("map"):
         if case.startswith("map_b"):
             monkeypatch.setattr(map_engine, "_BINNED_MIN_C", 16)
@@ -969,6 +976,9 @@ def graph_case(case, dev, monkeypatch):
         values = score_seed_values(kmer_occurrences([genome], 11), 11)
         eng = Mapper(genome, False, 11, values, 40, 1000, 2000,
                      device=dev).engine
+        if grid is not None:
+            eng = MapEngine(eng.index, 11, nq=64, nt=eng.nt, lean=True,
+                            mesh=grid)
         wins = []
         for _ in range(150):          # 300 rows: off the row ladder
             p = int(rng.integers(0, 115_000))
@@ -992,7 +1002,7 @@ def graph_case(case, dev, monkeypatch):
         ov.add_sequences(iter(reads))
         ov.index.index_sequences()
         eng = MapEngine(ov.index, 10, nq=128 if case == "overlap_d" else 16,
-                        nt=256, device=dev)
+                        nt=256, device=dev, mesh=grid)
         sq = [q.query for q in queries]
         base_min = np.array([int(0.25 * q.num_seeds + 0.5) for q in sq],
                             np.int32)
@@ -1046,8 +1056,10 @@ def rolled(inputs, shift):
 def test_captured_replay_matches_eager_on_card(cuda_device, monkeypatch,
                                                case):
     """Each route's block, captured at its first dispatch, replays bit for
-    bit what the function computes when called directly, and each replay
-    adds the chain launches the function makes to ``chain_scan.launches``."""
+    bit what the function computes when called directly (the graph's
+    output buffers filled with -3 before each replay, so a replay whose
+    work did not run fails), and each replay adds the chain launches the
+    function makes to ``chain_scan.launches``."""
     cache, calls = recorded_runs(monkeypatch)
     graph_case(case, cuda_device, monkeypatch)
     fn, inputs, tables, statics = next(c for c in calls
@@ -1055,13 +1067,16 @@ def test_captured_replay_matches_eager_on_card(cuda_device, monkeypatch,
     assert len(cache.entries) >= 1
     for shift in (0, 5):
         ins = rolled(inputs, shift)
+        for e in cache.entries.values():
+            for o in e.outputs:
+                o.fill_(True if o.dtype == torch.bool else -3)
         before = cuda_chain.chain_scan.launches
         got = outputs(cache.run(fn, ins, tables, **statics))
         replay_launches = cuda_chain.chain_scan.launches - before
         before = cuda_chain.chain_scan.launches
         ref = outputs(fn(**ins, **tables, **statics))
         assert replay_launches == cuda_chain.chain_scan.launches - before
-        assert replay_launches >= 1
+        assert replay_launches >= (0 if fn.__name__ in NO_CHAIN else 1)
         torch.cuda.synchronize()
         assert len(got) == len(ref)
         for g, r in zip(got, ref):

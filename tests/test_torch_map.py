@@ -326,6 +326,28 @@ def test_chip_smoke_imports_only_the_port():
     assert port_occ.__module__ == "downpore_tpu_torch.utils.kmers"
 
 
+_A = np.arange(6, dtype=np.int32).reshape(2, 3)
+
+
+@pytest.mark.parametrize("a,b,same", [
+    ((_A, [1, None]), (_A.copy(), [1, None]), True),
+    ({"v": _A, "n": 3}, {"v": _A.copy(), "n": 3}, True),
+    (_A, _A.astype(np.int64), False),            # dtype
+    (_A, _A.reshape(3, 2), False),               # shape
+    (_A, np.where(_A == 5, -3, _A), False),      # one value
+    ((_A,), [_A], False),                        # tuple against list
+    ({"v": _A}, {"w": _A}, False),               # keys
+    ([_A, _A], [_A], False),                     # length
+], ids=["nested", "dict", "dtype", "shape", "value", "container", "keys",
+        "length"])
+def test_chip_smoke_same_tells_outputs_apart(a, b, same):
+    """``phase_graphs`` holds replayed outputs to eager ones with
+    ``chip_smoke._same``: equal only where every array's dtype, shape and
+    values, and every container's type, length and keys agree."""
+    smoke = _load_chip_smoke()
+    assert smoke._same(a, b) is same and smoke._same(b, a) is same
+
+
 def test_chip_smoke_without_a_card_fails_without_result():
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
