@@ -5,7 +5,7 @@
 Phases (any failure ends the run with a non-zero exit):
 
 1. device: the card's name and power limit (nvidia-smi), CUDA version,
-   the build of the three kernels from ``downpore_tpu_torch/csrc`` (one
+   the build of the five kernels from ``downpore_tpu_torch/csrc`` (one
    nvcc per source, all started together), and the port's native host
    library (``downpore_tpu_torch/native/seqscan.cpp``), which must load;
 2. kernels vs plain versions, on card tensors, each timed against its
@@ -28,7 +28,10 @@ Phases (any failure ends the run with a non-zero exit):
    chains and n_valid at bench.py's consensus shape (1024 jobs x 6
    members x 500-base cores at 8% substitutions, k = 5, simple-k
    measure: the [1024, 8, 512] bucket), and again with the table measure
-   on a 64-job subset;
+   on a 64-job subset; ``cuda_anchors.anchors_topk`` (rows and indexed
+   slots) and ``cuda_counts.retrieval_count`` (flat with and without the
+   ``first`` mask, binned) must equal their plain versions at the paths'
+   widths (``ANCHOR_SHAPES``, ``COUNT_SHAPES``: ``phase_anchor_counts``);
 3. the map slice at E. coli scale: a synthetic 4.6 Mb genome (k = 11, seed
    rate 40, 10 kb chunks, 1 kb edges), 8192 reads of 6-10 kb at 8%
    substitutions, half reverse-complemented; ``Mapper.map_batch`` on the
@@ -113,7 +116,12 @@ Phases (any failure ends the run with a non-zero exit):
    the exact budget).  The timed passes of the map, grid, overlap and
    trim phases print their re-runs at collect too.  Two warm dispatches
    come first: they capture the path's CUDA graphs (counted on their
-   own), so the dispatch held to the contract replays them;
+   own), so the dispatch held to the contract replays them; then one
+   more dispatch + collect with the blocks run eagerly records every
+   anchor and count launch, holds it against its plain version and times
+   the largest of each kind alone beside its plain version, its bound and
+   (a flat count) ``torch._int_mm`` of the bucket multiplicities, its
+   library yardstick (``time_path_kernels``);
 13. the capture / replay layer (``phase_graphs``, beside each
    ``phase_dispatch`` case, and a 2 x 1 data grid whose blocks are one
    graph each): per path, the graphs its keys hold (captures, replays,
@@ -133,7 +141,13 @@ Phases (any failure ends the run with a non-zero exit):
    each replay.
 
 Every launch a phase records is held against its plain version and
-timed (not counted) beside its bound.  It prints the kernel table as one
+timed (not counted) beside its bound: the chain, anchor and count kernels'
+launches of the map warm-up pass, the 64 Mb warm-up pass, overlap's first
+round, the grid's recorded runs and ``correct``, trim's first of each
+stage (chain and anchors), the library's chain launches and ``correct``'s
+beam launches.  Each path's launches of the chain, anchor and count
+kernels are counted from 0 over its run (``PATH_LAUNCHES``), and a path
+that runs a step but launched its kernel no time fails.  It prints the kernel table as one
 JSON line, the nvidia-smi line, and as its last line ``{"ok": true,
 "device": {...}}``.  Without a usable CUDA card it exits non-zero and
 prints no result.  It imports nothing of JAX or of the JAX package itself
@@ -356,6 +370,69 @@ def phase_kernel(dev):
     return max_err, timing, rows
 
 
+# synthetic shapes of the anchor and count kernels' first check, the
+# paths' widths: (P, NQ, NT) and (M, R, W, H, BB, NB)
+ANCHOR_SHAPES = ((2048, 64, 320), (1024, 128, 4096), (512, 300, 90),
+                 (4096, 16, 120))
+COUNT_SHAPES = ((4096, 64, 512, 1 << 17, 0, 0), (2048, 128, 12288, 1 << 14,
+                                                  0, 0),
+                (4096, 64, 56, 1 << 17, 0, 0), (4096, 64, 128, 1 << 14, 8,
+                                                 56))
+
+
+def phase_anchor_counts(dev):
+    """The anchor and retrieval-count kernels against their plain
+    versions on synthetic card tensors at the paths' widths, before any
+    path runs them: rows from a small alphabet (seeds repeated in a
+    target, all -1 rows), both anchor entries (the indexed one with dead
+    slots), flat counts with and without the ``first`` mask and the
+    binned form.  Returns the max abs error of each."""
+    from downpore_tpu_torch.ops import cuda_anchors, cuda_counts
+    rng = np.random.default_rng(SEED + 90)
+    errs = {"anchors_topk": 0, "retrieval_count": 0}
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    with uncounted():
+        for P, NQ, NT in ANCHOR_SHAPES:
+            alpha = max(4, NT // 3)
+            qs = rng.integers(-1, alpha, (P, NQ)).astype(np.int32)
+            ts = rng.integers(-1, alpha, (P, NT)).astype(np.int32)
+            qs[::7] = -1
+            pos = lambda n: np.cumsum(rng.integers(1, 40, (P, n)), axis=1)
+            rows = [t(qs), t(pos(NQ).astype(np.int32)), t(ts),
+                    t(pos(NT).astype(np.int32))]
+            live = rng.random(P) < 0.8
+            slots = [t(rng.integers(0, P, P)), t(rng.integers(0, P, P)),
+                     t(live)]
+            for args, got in (
+                    (rows, cuda_anchors.anchors_topk(*rows)),
+                    (rows + slots,
+                     cuda_anchors.anchors_topk_indexed(*slots, *rows))):
+                err = _max_err(got, cuda_anchors.anchors_topk_plain(*args))
+                errs["anchors_topk"] = max(errs["anchors_topk"], err)
+            log(f"anchors_topk P={P} NQ={NQ} NT={NT}, rows and indexed: "
+                f"max_abs_err={errs['anchors_topk']}")
+        for M, R, W, H, BB, NB in COUNT_SHAPES:
+            mem = t((rng.integers(0, 50, (H, W), dtype=np.uint8) == 0)
+                    .astype(np.int8))
+            b = rng.integers(-1, H // max(1, NB), (M, R)).astype(np.int32)
+            b[::9] = -1
+            first = t((b >= 0) & (rng.random((M, R)) < 0.7))
+            b = t(b)
+            topbin = None if not BB else t(np.stack(
+                [rng.permutation(NB)[:BB] for _ in range(M)]))
+            for f in (first, None):
+                args = (mem, b, f, topbin, max(1, NB))
+                err = _max_err(cuda_counts.retrieval_count(*args),
+                               cuda_counts.retrieval_count_plain(*args))
+                errs["retrieval_count"] = max(errs["retrieval_count"], err)
+            log(f"retrieval_count M={M} R={R} W={W} H={H} BB={BB}: "
+                f"max_abs_err={errs['retrieval_count']}")
+    if any(errs.values()):
+        raise SystemExit(f"the anchor or count kernel differs from its "
+                         f"plain version: {errs}")
+    return errs
+
+
 def make_case(n_reads: int, genome_len: int):
     """Genome and reads as the JAX package's map benchmark makes them:
     reads of 6-10 kb at random positions, substitutions at ``ERR``, odd
@@ -388,7 +465,6 @@ def recall(results, truth) -> float:
 def phase_slice(dev, genome_len: int = GENOME, n_reads: int = N_READS):
     from downpore_tpu_torch.core import Sequence
     from downpore_tpu_torch.mapping import Mapper
-    from downpore_tpu_torch.ops import cuda_chain
     from downpore_tpu_torch.utils import kmer_occurrences, score_seed_values
 
     t0 = time.perf_counter()
@@ -409,15 +485,22 @@ def phase_slice(dev, genome_len: int = GENOME, n_reads: int = N_READS):
     bases = sum(len(r) for r in reads)
     # two warm-up passes: the first captures each dispatch's graph at the
     # JAX budgets, the second at the budgets its counts settled, so the
-    # timed passes replay
-    for _ in range(2):
-        t0 = time.perf_counter()
-        mapper.map_batch(reads)
-        sync(dev)
+    # timed passes replay; the first one's path-kernel launches are
+    # recorded and held against their plain versions
+    calls = []
+    for i in range(2):
+        with patched(record_all(calls) if i == 0 else []):
+            t0 = time.perf_counter()
+            mapper.map_batch(reads)
+            sync(dev)
         log(f"warm-up pass {time.perf_counter() - t0:.3f} s")
+    log(f"map warm-up pass 1: its {len(calls)} recorded launches against "
+        f"the plain versions:")
+    check_recorded(calls)
+    del calls
 
     eng.routes.clear()
-    cuda_chain.chain_scan.launches = 0
+    zero_launches()
     walls = []
     with counted_reruns() as reruns:
         for _ in range(TIMED_PASSES):
@@ -425,17 +508,15 @@ def phase_slice(dev, genome_len: int = GENOME, n_reads: int = N_READS):
             results = mapper.map_batch(reads)
             sync(dev)
             walls.append(time.perf_counter() - t0)
-    launches = cuda_chain.chain_scan.launches
+    launches = path_launches("map 4.6 Mb")
     routes = dict(eng.routes)
     wall = float(np.median(walls))
     log(f"map_batch, {TIMED_PASSES} passes: wall "
         f"{', '.join(f'{w:.4f}' for w in walls)} s; median {wall:.4f} s = "
         f"{len(reads) / wall:.1f} reads/s, {bases / wall:.0f} bases/s "
-        f"({bases} bases); chain_scan launches {launches}; routes {routes}; "
+        f"({bases} bases); launches {launches}; routes {routes}; "
         f"re-runs at collect {reruns['reruns']} of "
         f"{sum(routes.values())} dispatches")
-    if launches <= 0:
-        raise SystemExit("the map path launched no chain_scan kernel")
     if routes.get("_fused_map_d", 0) <= 0:
         raise SystemExit(f"the map path never took _fused_map_d: {routes}")
     rec = recall(results, truth)
@@ -461,8 +542,8 @@ PROFILE_RANGES = (
      "dev:binned_counts_pair"),
     ("downpore_tpu_torch.ops.map_engine", "compact_indices",
      "dev:gate_compact"),
-    ("downpore_tpu_torch.ops.map_engine", "make_anchors_topk",
-     "dev:make_anchors_topk"),
+    ("downpore_tpu_torch.ops.map_engine", "_build_anchors",
+     "dev:build_anchors"),
     ("downpore_tpu_torch.ops.map_engine", "dp_from_anchors",
      "dev:dp_from_anchors"),
     ("downpore_tpu_torch.ops.map_engine", "summarize_dp",
@@ -635,6 +716,21 @@ def phase_dispatch(name: str, dispatch, collect, need):
         f"busy (dispatch + collect) {busy:.3f} ms at the path's budget, "
         f"{busy_exact:.3f} ms at the exact budget {n}: padding "
         f"{busy - busy_exact:.3f} ms; re-runs at collect {reruns['reruns']}")
+    # the path's anchor and count launches at its shapes: one dispatch +
+    # collect with the blocks run eagerly (its graphs, captured before,
+    # record nothing), each launch held against its plain version, and
+    # the largest of each kind timed (``time_path_kernels``)
+    calls = []
+    with patched(record_all(calls, kernels=("anchors_topk",
+                                            "retrieval_count"))
+                 + [(captured, "run", _eager_run)]), uncounted():
+        collect(dispatch(None))
+    log(f"phase_dispatch {name}: the {len(calls)} anchor and count "
+        f"launches of one eager dispatch + collect against their plain "
+        f"versions:")
+    if not any(c[0].__name__ == "anchors_topk_plain" for c in calls):
+        raise SystemExit(f"phase_dispatch {name}: no anchor build recorded")
+    check_recorded(calls, path=name)
     return row
 
 
@@ -1211,7 +1307,19 @@ def containment(seqs, genome) -> list:
     return out
 
 
-def recording(launch, plain, calls: list, want=None):
+def _table_args(plain, a) -> tuple:
+    """Positions of the resident tables among a recorded launch's
+    arguments: the membership of a retrieval count, the four row tables of
+    an indexed anchor build."""
+    name = plain.__name__
+    if name == "retrieval_count_plain":
+        return (0,)
+    if name == "anchors_topk_plain" and len(a) > 4 and a[4] is not None:
+        return (0, 1, 2, 3)
+    return ()
+
+
+def recording(launch, plain, calls: list, want=None, tables=None):
     """``launch`` (a kernel wrapper's ``_launch``) that also keeps a copy
     of each launch's card inputs and outputs in ``calls``, to be held
     against ``plain`` (and timed) after the run.  A launch captured into a
@@ -1220,7 +1328,11 @@ def recording(launch, plain, calls: list, want=None):
     later node reuses them), and each replay copies them once the replay
     is enqueued.  ``want()`` says whether to record a launch now (default:
     while the wrapper is its module's ``_launch``); the first replay it
-    refuses releases the buffers."""
+    refuses releases the buffers.  With a ``tables`` dict, the resident
+    tables of the launches (``_table_args``: memberships, chunk seed
+    tables) are copied once per content (tensor and version counter; the
+    dict holds the tensor, so its memory is not reused while it is
+    there), not once per launch."""
     from downpore_tpu_torch.ops import captured
 
     def active():
@@ -1229,10 +1341,26 @@ def recording(launch, plain, calls: list, want=None):
         return getattr(sys.modules[launch.__module__], "_launch",
                        None) is wrapper
 
+    def copy(args):
+        once = _table_args(plain, args) if tables is not None else ()
+        out = []
+        for i, x in enumerate(args):
+            if not torch.is_tensor(x):
+                out.append(x)
+                continue
+            if i not in once:
+                out.append(x.clone())
+                continue
+            key = (x.data_ptr(), tuple(x.shape), tuple(x.stride()), x.dtype)
+            hit = tables.get(key)
+            if hit is None or hit[1] != x._version:
+                hit = tables[key] = (x, x._version, x.clone())
+            out.append(hit[2])
+        return out
+
     def keep(saved, outs):
-        calls.append((plain, [x.clone() if torch.is_tensor(x) else x
-                              for x in saved],
-                      [o.clone() for o in outs], launch))
+        calls.append((plain, copy(saved), [o.clone() for o in outs],
+                      launch))
 
     def wrapper(*a):
         if captured.capturing():
@@ -1249,12 +1377,241 @@ def recording(launch, plain, calls: list, want=None):
             return out
         if not (a[0].numel() and active()):
             return launch(*a)
-        saved = [x.clone() if torch.is_tensor(x) else x for x in a]
+        saved = copy(a)
         out = launch(*a)
         outs = out if isinstance(out, tuple) else (out,)
         calls.append((plain, saved, [o.clone() for o in outs], launch))
         return out
     return wrapper
+
+
+# the kernels of the map, overlap and trim paths
+PATH_KERNELS = ("chain_scan", "anchors_topk", "retrieval_count")
+PATH_LAUNCHES = {}    # path -> each path kernel's launches over its run
+RECORDED_ERRS = {}    # kernel -> max abs error of its recorded launches
+KERNEL_ROWS = []      # the anchor and count kernels timed at path shapes
+
+
+def path_modules():
+    """(name, module, plain version) of each path kernel."""
+    from downpore_tpu_torch.ops import cuda_anchors, cuda_chain, cuda_counts
+    return (("chain_scan", cuda_chain, cuda_chain.chain_scan_plain),
+            ("anchors_topk", cuda_anchors, cuda_anchors.anchors_topk_plain),
+            ("retrieval_count", cuda_counts,
+             cuda_counts.retrieval_count_plain))
+
+
+def zero_launches():
+    """Every path kernel's launch count set to 0."""
+    for name, mod, _ in path_modules():
+        getattr(mod, name).launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: getattr(mod, name).launches
+            for name, mod, _ in path_modules()}
+
+
+def path_launches(path: str, need=PATH_KERNELS) -> dict:
+    """The path kernels' launches since ``zero_launches``, kept under
+    ``path`` for the kernel table; fails when a kernel of ``need`` (the
+    steps the path runs) launched no time."""
+    got = launch_counts()
+    PATH_LAUNCHES[path] = got
+    missing = [k for k in need if got[k] <= 0]
+    if missing:
+        raise SystemExit(f"the {path} path launched no {', '.join(missing)} "
+                         f"kernel: {got}")
+    return got
+
+
+def record_all(calls: list, want=None, kernels=PATH_KERNELS):
+    """``patched`` substitutions that record every launch of the path
+    kernels (``kernels``) into ``calls``, their resident tables copied
+    once (``recording``)."""
+    tables = {}
+    return [(mod, "_launch", recording(mod._launch, plain, calls, want,
+                                       tables))
+            for name, mod, plain in path_modules() if name in kernels]
+
+
+# an anchor-build compare: the equality, the hit count, the select
+ANCHOR_OPS_PER_COMPARE = 3
+
+
+def _anchor_rows(args):
+    """The query and target seed rows an anchor launch reads, as rows."""
+    qs, _, ts, _ = args[:4]
+    if len(args) > 4 and args[4] is not None:
+        mi, ci, live = args[4:7]
+        return torch.where(live[:, None], qs[mi], -1), ts[ci]
+    return qs, ts
+
+
+def _rows_read(idx) -> int:
+    """Distinct rows among ``idx``: each input row is read once."""
+    return int(torch.unique(idx).numel()) if idx.numel() else 0
+
+
+def anchors_bound(args, outs):
+    """The anchor kernel's bound on these inputs: a compare of each live
+    query seed with each live target seed of its pair (``ANCHOR_OPS_PER_
+    COMPARE`` int32 operations); the bytes are the distinct rows the pairs
+    with a live query seed read (seeds and positions of the query, seeds
+    of the target; of the tables, with the indexed entry), the hits'
+    target positions and the slot arrays, each read once, and the outputs
+    written once."""
+    q, t = _anchor_rows(args)
+    nq = q.ge(0).sum(dim=1).long()
+    nt = t.ge(0).sum(dim=1).long()
+    compares = int((nq * nt).sum())
+    P, A = outs[0].shape
+    busy = nq.gt(0)
+    if len(args) > 4 and args[4] is not None:
+        q_rows = _rows_read(args[4][busy])
+        t_rows = _rows_read(args[5][busy])
+        slots = P * 17
+    else:
+        q_rows = t_rows = int(busy.sum())
+        slots = 0
+    nbytes = q_rows * q.shape[1] * 8 + t_rows * t.shape[1] * 4 \
+        + int(outs[4].sum()) * 4 + P * A * 17 + P * 4 + slots
+    return bound(compares * ANCHOR_OPS_PER_COMPARE, nbytes)
+
+
+def counts_bound(args):
+    """The retrieval-count kernel's bound on these inputs: an add per byte
+    of every live slot's gathered row (each of its ``BB`` bins' in the
+    binned form; one more per byte of a ``first`` slot), against the
+    bytes of the distinct membership rows the live slots name, the
+    buckets, mask and bins, each read once, and the int32 outputs written
+    once."""
+    mem, b, first, topbin, NB = args
+    M, R = b.shape
+    W = mem.shape[1]
+    BB = 1 if topbin is None else topbin.shape[1]
+    live = b.ge(0)
+    adds = int(live.sum()) * BB * W
+    if topbin is None:
+        rows = b[live].long().clamp(max=mem.shape[0] - 1)
+    else:
+        rows = (b.clamp(min=0).long()[:, :, None] * NB
+                + topbin[:, None, :])[live]
+    nbytes = _rows_read(rows) * W + M * R * 4 + M * BB * W * 4
+    if first is not None:
+        adds += int((first & live).sum()) * BB * W
+        nbytes += M * R + M * BB * W * 4
+    if topbin is not None:
+        nbytes += M * BB * 8
+    return bound(adds, nbytes)
+
+
+def anchors_raw(args):
+    """One launch of the anchor kernel on a recorded launch's arguments,
+    through its C entry point into preallocated outputs: times the kernel,
+    not the wrapper, and is not counted."""
+    from downpore_tpu_torch.ops import cuda_anchors
+    lib = cuda_anchors._lib()
+    qs, mi = args[0], (args[4] if len(args) > 4 else None)
+    outs = cuda_anchors._outputs((qs if mi is None else mi).shape[0],
+                                 qs.shape[1], qs.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = cuda_anchors._call(lib, outs, *args, stream=stream)
+        if err:
+            raise SystemExit(f"anchors_topk launch failed: {err}")
+    run.outs = outs
+    return run
+
+
+def counts_raw(args):
+    """One launch of the retrieval-count kernel on a recorded launch's
+    arguments, through its C entry point into preallocated outputs."""
+    from downpore_tpu_torch.ops import cuda_counts
+    lib = cuda_counts._lib()
+    outs = cuda_counts._outputs(*args[:4])
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = cuda_counts._call(lib, outs, *args, stream=stream)
+        if err:
+            raise SystemExit(f"retrieval_count launch failed: {err}")
+    run.outs = outs
+    return run
+
+
+def counts_library(args, outs):
+    """The library yardstick of a flat retrieval count: one
+    ``torch._int_mm`` of the ``[M, H]`` int8 bucket-multiplicity matrix by
+    the membership, which gives the run count ``c``.  Returns (ms, equal
+    to the kernel's c), or None where no such call exists (the binned
+    form, shapes ``_int_mm`` refuses, a multiplicity above int8).  The port
+    never calls it."""
+    mem, b, first, topbin, _ = args
+    M, R = b.shape
+    H, W = mem.shape
+    if topbin is not None or M <= 16 or H % 8 or W % 8:
+        return None
+    mult = torch.zeros((M, H), dtype=torch.int32, device=mem.device)
+    mult.scatter_add_(1, b.clamp(min=0).long(), b.ge(0).int())
+    if int(mult.max()) > 127:
+        return None
+    a8 = mult.to(torch.int8)
+    del mult
+    run = lambda: torch._int_mm(a8, mem)
+    same = torch.equal(run(), outs[0])
+    return min(cuda_ms(run, 3), cuda_ms(run, 3)), same
+
+
+def time_path_kernels(path: str, calls):
+    """The anchor and count kernels of one path's recorded launches, the
+    largest launch of each kind (anchors: rows or indexed; counts: flat
+    or binned, with or without ``first``): the kernel alone, its plain
+    version and (a flat count) the library call on the same inputs,
+    beside the bound; a row each in KERNEL_ROWS."""
+    largest = {}
+    for plain, args, outs, _ in calls:
+        name = plain.__name__.removesuffix("_plain")
+        if name == "anchors_topk":
+            kind = "indexed" if len(args) > 4 and args[4] is not None \
+                else "rows"
+            size = outs[0].numel()
+        elif name == "retrieval_count":
+            kind = ("binned" if args[3] is not None else "flat") \
+                + (" + first" if args[2] is not None else "")
+            size = args[1].numel() * outs[0].numel() // max(1, args[1].shape[0])
+        else:
+            continue
+        if size >= largest.get((name, kind), (-1,))[0]:
+            largest[(name, kind)] = (size, plain, args, outs)
+    for (name, kind), (_, plain, args, outs) in sorted(largest.items()):
+        anchors = name == "anchors_topk"
+        run = (anchors_raw if anchors else counts_raw)(args)
+        ms = min(cuda_ms(run, 10), cuda_ms(run, 10))
+        plain_ms = cuda_ms(lambda: plain(*args), 1)
+        b_ms, b_by = anchors_bound(args, outs) if anchors \
+            else counts_bound(args)
+        lib = None if anchors else counts_library(args, outs)
+        lib_ms = None if lib is None or not lib[1] else lib[0]
+        if anchors:
+            q, t = _anchor_rows(args)
+            shape = f"P={outs[0].shape[0]} NQ={q.shape[1]} NT={t.shape[1]}"
+        else:
+            shape = (f"M={args[1].shape[0]} R={args[1].shape[1]} "
+                     f"W={args[0].shape[1]} H={args[0].shape[0]}"
+                     + (f" BB={args[3].shape[1]} NB={args[4]}"
+                        if args[3] is not None else ""))
+        row = dict(path=path, name=name, kind=kind, shape=shape, ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                   bound_by=b_by)
+        KERNEL_ROWS.append(row)
+        log(f"  {name} ({kind}) at {path} [{shape}]: kernel {ms:.4f} ms, "
+            f"plain torch {plain_ms:.3f} ms, library "
+            + (f"{lib_ms:.4f} ms (torch._int_mm)" if lib_ms is not None
+               else ("null" if lib is None else
+                     "null (its product differs)"))
+            + f"; bound {b_ms:.4f} ms ({b_by}); share {b_ms / ms:.3f}")
 
 
 BEAM_OPS_PER_CELL = 20   # distance, band terms, saturating adds, min, vote
@@ -1326,9 +1683,11 @@ def beam_raw(args):
 @contextlib.contextmanager
 def uncounted():
     """Launches inside the block leave the kernels' counts as they were."""
-    from downpore_tpu_torch.ops import cuda_band, cuda_beam, cuda_chain
+    from downpore_tpu_torch.ops import cuda_anchors, cuda_band, cuda_beam, \
+        cuda_chain, cuda_counts
     kerns = (cuda_chain.chain_scan, cuda_band.update_bands,
-             cuda_beam.beam_consensus)
+             cuda_beam.beam_consensus, cuda_anchors.anchors_topk,
+             cuda_counts.retrieval_count)
     saved = [kern.launches for kern in kerns]
     modes = dict(cuda_chain.MODE_LAUNCHES)
     try:
@@ -1339,26 +1698,57 @@ def uncounted():
         cuda_chain.MODE_LAUNCHES.update(modes)
 
 
-def check_recorded(calls, times=None) -> dict:
+def _max_err(outs, ref) -> int:
+    """Max abs difference of a launch's outputs and its plain version's
+    (bool outputs as 0/1); a shape or dtype that differs fails."""
+    err = 0
+    for g, r in zip(outs, ref):
+        if g.shape != r.shape or g.dtype != r.dtype:
+            raise SystemExit(f"an output of shape {tuple(g.shape)} "
+                             f"{g.dtype} against the plain version's "
+                             f"{tuple(r.shape)} {r.dtype}")
+        if g.numel():
+            err = max(err, int((g.long() - r.long()).abs().max()))
+    return err
+
+
+def check_recorded(calls, times=None, path=None) -> dict:
     """Max abs error per kernel of the recorded launches against their
     plain versions on the same card tensors (fails on any difference),
     and each launch's time (the kernel alone, not counted) beside its
     bound; a beam launch also with the steps its longest job took and the
     time a step.  Each launch's ms is added to ``times[name]`` when
-    ``times`` is given."""
+    ``times`` is given; with ``path``, the largest anchor and count
+    launches are also timed beside their plain versions
+    (``time_path_kernels``)."""
     errs = {}
     for plain, args, outs, launch in calls:
         ref = plain(*args)
         ref = ref if isinstance(ref, tuple) else (ref,)
-        err = max(int((g - r).abs().max()) for g, r in zip(outs, ref))
+        if len(ref) != len(outs):
+            raise SystemExit(f"{plain.__name__} gave {len(ref)} outputs, "
+                             f"the kernel {len(outs)}")
+        err = _max_err(outs, ref)
         name = plain.__name__.removesuffix("_plain").removesuffix("_ragged")
         errs[name] = max(errs.get(name, 0), err)
+        RECORDED_ERRS[name] = max(RECORDED_ERRS.get(name, 0), err)
         scalars = [a for a in args if not torch.is_tensor(a) and a is not None]
         extra = ""
         if name == "chain_scan":     # the kernel alone, as phase_kernel
             ms = cuda_ms(chain_raw(args[:5], *args[5:]), 5)
             b_ms, b_by = chain_bound(args[4], args[7])
             shape = list(args[0].shape)
+        elif name in ("anchors_topk", "retrieval_count"):
+            anchors = name == "anchors_topk"
+            run = (anchors_raw if anchors else counts_raw)(args)
+            run()
+            if _max_err(run.outs, outs):
+                raise SystemExit(f"{name}'s C entry point differs from its "
+                                 f"wrapper on a recorded launch")
+            ms = cuda_ms(run, 5)
+            b_ms, b_by = anchors_bound(args, outs) if anchors \
+                else counts_bound(args)
+            shape = [list(a.shape) for a in args if torch.is_tensor(a)]
         else:                        # the ragged beam launch, kernel alone
             run = beam_raw(args)
             run()
@@ -1383,13 +1773,15 @@ def check_recorded(calls, times=None) -> dict:
         if err != 0:
             raise SystemExit(f"{name} differs from its plain version at a "
                              f"shape of a main path")
+    if path is not None:
+        time_path_kernels(path, calls)
     return errs
 
 
 def phase_correct(dev):
-    """The port's correct on the card at CORRECT_READS reads; returns the
-    case's records, the kernel launch counts of the run and the max abs
-    error of its launches against the plain versions."""
+    """The port's correct on the card at CORRECT_READS reads, every kernel
+    launch of the run held against its plain version; returns the case's
+    records and the kernel launch counts of the run."""
     from downpore_tpu_torch import consensus as cons_mod
     from downpore_tpu_torch.ops import cuda_band, cuda_beam, cuda_chain
     from downpore_tpu_torch.overlap import Overlapper
@@ -1407,20 +1799,20 @@ def phase_correct(dev):
             [(Overlapper, n, "overlap") for n in
              ("prepare_queries", "add_sequences", "find_overlaps")]
             + [(cons_mod, "build_consensus_bulk", "consensus")]]
-    subs += [(mod, "_launch", recording(mod._launch, plain, calls))
-             for mod, plain in ((cuda_chain, cuda_chain.chain_scan_plain),
-                                (cuda_beam,
-                                 cuda_beam.beam_consensus_ragged_plain))]
-    kernels = (cuda_chain.chain_scan, cuda_band.update_bands,
-               cuda_beam.beam_consensus)
+    subs += record_all(calls)
+    subs += [(cuda_beam, "_launch", recording(
+        cuda_beam._launch, cuda_beam.beam_consensus_ragged_plain, calls))]
+    kernels = (cuda_band.update_bands, cuda_beam.beam_consensus)
     with patched(subs):
         for kern in kernels:
             kern.launches = 0
+        zero_launches()
         t0 = time.perf_counter()
         out, err = run_correct(records, dev.type)
         sync(dev)
         wall = time.perf_counter() - t0
         launches = {kern.__name__: kern.launches for kern in kernels}
+        launches.update(path_launches("correct"))
     lines = out.splitlines()
     names = [ln[1:] for ln in lines if ln.startswith(">")]
     seqs = [ln for ln in lines if ln and not ln.startswith(">")]
@@ -1434,8 +1826,6 @@ def phase_correct(dev):
     if launches["beam_consensus"] <= 0:
         raise SystemExit("the correct path launched no beam_consensus "
                          "kernel")
-    if launches["chain_scan"] <= 0:
-        raise SystemExit("the correct path launched no chain_scan kernel")
     if not names or len(names) != len(seqs) \
             or any(set(x) - set("ACGT") or len(x) <= 300 for x in seqs):
         raise SystemExit("correct gave no well-formed consensus sequences")
@@ -1450,12 +1840,13 @@ def phase_correct(dev):
         f"k, beam, threshold, gap, simple_k, records]):")
     kernel_ms = {}
     errs = check_recorded(calls, kernel_ms)
-    if set(errs) != {"chain_scan", "beam_consensus"}:
+    if set(errs) != {"chain_scan", "beam_consensus", "anchors_topk",
+                     "retrieval_count"}:
         raise SystemExit(f"recorded launches of {sorted(errs)} only")
     log(f"correct's beam_consensus: {launches['beam_consensus']} launches, "
         f"{kernel_ms['beam_consensus']:.4f} ms of kernel time in all "
         f"(each launch re-timed alone on its recorded inputs)")
-    return records, launches, errs
+    return records, launches
 
 
 PROFILE_CORRECT_OUT = "chiprun_out/profile_correct.txt"
@@ -1578,12 +1969,11 @@ def resident_bytes(eng, names) -> dict:
 
 def phase_chromosome(dev):
     """The map path at chromosome scale (bench.py's 64 Mb case), on the
-    binned gate.  Returns the chain kernel's launch count over the three
-    timed passes and the max abs error of the warm-up pass's launches
-    against the plain version."""
+    binned gate: the path kernels' launches over the three timed passes
+    (``PATH_LAUNCHES``), the warm-up pass's launches held against their
+    plain versions."""
     from downpore_tpu_torch.core import Sequence
     from downpore_tpu_torch.mapping import Mapper
-    from downpore_tpu_torch.ops import cuda_chain
     from downpore_tpu_torch.utils import kmer_occurrences, score_seed_values
 
     t0 = time.perf_counter()
@@ -1614,21 +2004,20 @@ def phase_chromosome(dev):
 
     bases = sum(len(r) for r in reads)
     calls = []
-    with patched([(cuda_chain, "_launch", recording(
-            cuda_chain._launch, cuda_chain.chain_scan_plain, calls))]):
+    with patched(record_all(calls)):
         t0 = time.perf_counter()
         mapper.map_batch(reads)                   # warm-up, recorded
         sync(dev)
     log(f"chromosome warm-up pass {time.perf_counter() - t0:.3f} s; its "
-        f"{len(calls)} chain launches against the plain version:")
-    err = check_recorded(calls).get("chain_scan", 0)
+        f"{len(calls)} recorded launches against the plain versions:")
+    check_recorded(calls)
     del calls
     mapper.map_batch(reads)     # the second warm-up, at settled budgets
     sync(dev)
 
     eng.routes.clear()
     eng.bins.clear()
-    cuda_chain.chain_scan.launches = 0
+    zero_launches()
     walls = []
     with counted_reruns() as reruns:
         for _ in range(TIMED_PASSES):
@@ -1636,20 +2025,18 @@ def phase_chromosome(dev):
             results = mapper.map_batch(reads)
             sync(dev)
             walls.append(time.perf_counter() - t0)
-    launches = cuda_chain.chain_scan.launches
+    launches = path_launches("map 64 Mb")
     routes = dict(eng.routes)
     wall = float(np.median(walls))
     n_bin = max(n for n, _ in eng.bins)
     log(f"chromosome map_batch, {TIMED_PASSES} passes: wall "
         f"{', '.join(f'{w:.4f}' for w in walls)} s; median {wall:.4f} s = "
-        f"{bases / wall:.0f} bases/s ({bases} bases); chain_scan launches "
+        f"{bases / wall:.0f} bases/s ({bases} bases); launches "
         f"{launches}; routes {routes}; binned dispatches by (n_bin, BB) "
         f"{dict(sorted(eng.bins.items()))}: largest n_bin {n_bin}, final BB "
         f"{max(bb for _, bb in eng.bins)}; re-runs at collect "
         f"{reruns['reruns']} of {sum(routes.values())} dispatches; peak "
         f"device memory {torch.cuda.max_memory_allocated()} bytes")
-    if launches <= 0:
-        raise SystemExit("the chromosome map launched no chain_scan kernel")
     if routes.get("_fused_map_bd", 0) <= 0:
         raise SystemExit(f"the chromosome map never took _fused_map_bd: "
                          f"{routes}")
@@ -1660,7 +2047,6 @@ def phase_chromosome(dev):
     phase_profile(mapper, reads, PROFILE_CHR_OUT)
     map_dispatch_case("map 64 Mb (binned gate)", mapper, reads)
     phase_card_vs_cpu(mapper, reads, CHR_PAF_READS)
-    return launches, err
 
 
 OV_GENOME = 2_000_000
@@ -1748,9 +2134,9 @@ def write_overlap_reads(path: str, n_reads: int = OV_READS) -> int:
 def phase_overlap(dev):
     """``overlap`` through the port's CLI on bench.py's overlap_gb input,
     with the stages of ``OV_RANGES`` ranged and round OV_PROFILED_ROUND
-    under ``torch.profiler`` (tables in PROFILE_OV_OUT).  Returns the chain
-    kernel's launch count of the run and the max abs error of the first
-    round's launches against the plain version."""
+    under ``torch.profiler`` (tables in PROFILE_OV_OUT): the path kernels'
+    launches of the run (``PATH_LAUNCHES``), the first round's launches
+    held against their plain versions."""
     import hashlib
     import io
     import tempfile
@@ -1758,14 +2144,14 @@ def phase_overlap(dev):
     import downpore_tpu_torch.utils as port_utils
     from downpore_tpu_torch.cli.main import main as cli_main
     from downpore_tpu_torch.cli.overlap_command import OverlapCommand
-    from downpore_tpu_torch.ops import captured, cuda_chain
+    from downpore_tpu_torch.ops import captured
     from downpore_tpu_torch.overlap import Overlapper
 
     spent = {"kmers": 0.0, "prep": 0.0, "find": 0.0, "final": 0.0}
     per_round, calls = [], []
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     prof_t0 = []
-    launch = cuda_chain._launch
+    launches_of = [(mod, mod._launch) for _, mod, _ in path_modules()]
     find_timed = timed(Overlapper.dispatch_find, "find", spent, dev,
                        wait=False)
     kept = {}       # round OV_PROFILED_ROUND's engine and queries
@@ -1778,9 +2164,9 @@ def phase_overlap(dev):
         r = len(per_round) + 1
         graphs_at.append((len(captured.GRAPHS.entries),
                           captured.GRAPHS.table_copies))
-        if r == 1:     # hold the first round's launches to the plain scan
-            cuda_chain._launch = recording(launch,
-                                           cuda_chain.chain_scan_plain, calls)
+        if r == 1:     # hold the first round's launches to the plain ones
+            for mod, n, wrapper in record_all(calls):
+                setattr(mod, n, wrapper)
         if r == OV_PROFILED_ROUND:
             sync(dev)
             prof.start()
@@ -1788,7 +2174,8 @@ def phase_overlap(dev):
         try:
             out = find_timed(self, queries)
         finally:
-            cuda_chain._launch = launch
+            for mod, launch in launches_of:
+                mod._launch = launch
         eng = out[0]
         if r == OV_PROFILED_ROUND:
             kept.update(eng=eng, queries=queries)
@@ -1820,7 +2207,7 @@ def phase_overlap(dev):
             f"{time.perf_counter() - t0:.1f} s")
         out_path = os.path.join(d, "overlap.paf")
         torch.cuda.reset_peak_memory_stats()
-        cuda_chain.chain_scan.launches = 0
+        zero_launches()
         with patched(subs), ranged(OV_RANGES), counted_reruns() as reruns:
             t0 = time.perf_counter()
             with open(out_path, "w", buffering=1 << 22) as out, \
@@ -1829,7 +2216,7 @@ def phase_overlap(dev):
                 cli_main(["overlap", "-input", path])
             sync(dev)
             wall = time.perf_counter() - t0
-            launches = cuda_chain.chain_scan.launches
+            launches = path_launches("overlap")
         with open(out_path, "rb") as f:
             paf = f.read()
     n_paf = paf.count(b"\n")
@@ -1843,7 +2230,7 @@ def phase_overlap(dev):
         f"round 1's prep, waits for the worker's prep); round prep "
         f"{spent['prep']:.3f} s in all, on the worker thread after round "
         f"1, beside the find and checks; {len(per_round)} rounds; "
-        f"chain_scan launches {launches}; re-runs at collect "
+        f"launches {launches}; re-runs at collect "
         f"{reruns['reruns']}; peak device memory "
         f"{torch.cuda.max_memory_allocated()} bytes; {n_paf} PAF lines, "
         f"sha256 {hashlib.sha256(paf).hexdigest()}")
@@ -1870,19 +2257,20 @@ def phase_overlap(dev):
             f"the next round's prep on the worker) under torch.profiler: "
             f"wall {pw * 1e3:.3f} ms; {device_busy(prof.events(), pw)}")
         report_ranges(prof, OV_RANGES, PROFILE_OV_OUT)
-    log(f"overlap round 1's {len(calls)} chain launches against the plain "
-        f"version:")
+    log(f"overlap round 1's {len(calls)} recorded launches against the "
+        f"plain versions:")
     errs = check_recorded(calls)
+    del calls[:]
     if rounds != OV_STDERR:
         raise SystemExit("overlap's per-round stderr differs from the JAX "
                          "package's recorded run")
     if n_paf != OV_PAF_LINES:
         raise SystemExit(f"overlap gave {n_paf} PAF lines, the JAX package "
                          f"{OV_PAF_LINES}")
-    if launches <= 0 or not calls:
-        raise SystemExit("the overlap path launched no chain_scan kernel")
+    if set(errs) != set(PATH_KERNELS):
+        raise SystemExit(f"overlap's first round recorded launches of "
+                         f"{sorted(errs)} only")
     overlap_dispatch_case(kept["eng"], kept["queries"])
-    return launches, errs["chain_scan"]
 
 
 def overlap_dispatch_case(eng, queries):
@@ -1997,44 +2385,43 @@ def phase_trim(dev):
     """``trim`` through the port's CLI on TRIM_READS reads with the bundled
     adapters (k = 6, 256-base edges in batches of TRIM_EDGE_BATCH, 512-base
     middle windows in batches of 16,384): wall and MB/s, the wall split by
-    stage, chain launches per stage (each > 0; the first TRIM_RECORDED of
-    each held against the plain scan), peak device memory, the chimeras
-    split.  Then one edge and one middle batch under ``torch.profiler``
-    (PROFILE_TRIM_OUT), card-vs-CPU fastq identity on the first
-    TRIM_CARD_VS_CPU reads, and the golden digest on the card.  Returns
-    the chain launches of the run and the max abs error of the recorded
-    ones."""
+    stage, chain and anchor launches per stage (each > 0; the first
+    TRIM_RECORDED of each held against the plain versions), peak device
+    memory, the chimeras split.  Then one edge and one middle batch under
+    ``torch.profiler`` (PROFILE_TRIM_OUT), card-vs-CPU fastq identity on
+    the first TRIM_CARD_VS_CPU reads, and the golden digest on the card.
+    The run's launches go to ``PATH_LAUNCHES["trim"]``."""
     import tempfile
     import threading
     from collections import Counter
     from downpore_tpu_torch.io import SequenceSet
-    from downpore_tpu_torch.ops import captured, cuda_chain
+    from downpore_tpu_torch.ops import captured
     from downpore_tpu_torch.ops import window_engine as we
     from downpore_tpu_torch.trim.trimmer import Trimmer, _MidStream
 
     where = threading.local()      # the stage the calling thread is in
     per_stage, recorded, calls = Counter(), Counter(), []
-    launch = cuda_chain._launch
 
-    def staged_launch(*a):
-        # _launch launches the kernel (and counts it) unless P or A is 0;
-        # inside a capture it counts, and so does its stage, at each
-        # replay of the graph, where the kernel runs
-        if not a[0].numel():
-            return launch(*a)
-        stage = getattr(where, "stage", "other")
+    def staged_launch(name, launch, plain):
+        def wrapper(*a):
+            # _launch launches the kernel (and counts it) unless it has
+            # no rows; inside a capture it counts, and so does its stage,
+            # at each replay of the graph, where the kernel runs
+            if not a[0].numel():
+                return launch(*a)
+            stage = (name, getattr(where, "stage", "other"))
 
-        def count():
-            per_stage[stage] += 1
+            def count():
+                per_stage[stage] += 1
 
-        def want():
-            if recorded[stage] >= TRIM_RECORDED:
-                return False
-            recorded[stage] += 1
-            return True
-        captured.each_run(count)
-        return recording(launch, cuda_chain.chain_scan_plain, calls,
-                         want)(*a)
+            def want():
+                if recorded[stage] >= TRIM_RECORDED:
+                    return False
+                recorded[stage] += 1
+                return True
+            captured.each_run(count)
+            return recording(launch, plain, calls, want)(*a)
+        return wrapper
 
     def staged(fn, stage):
         @functools.wraps(fn)
@@ -2048,7 +2435,11 @@ def phase_trim(dev):
         return wrapper
 
     spent = Counter()
-    subs = [(cuda_chain, "_launch", staged_launch)]
+    # trim's gate is not a retrieval count: its path kernels are the
+    # anchor build and the chain
+    trim_kernels = ("chain_scan", "anchors_topk")
+    subs = [(mod, "_launch", staged_launch(name, mod._launch, plain))
+            for name, mod, plain in path_modules() if name in trim_kernels]
     subs += [(we, n, staged(getattr(we, n), stage)) for n, stage in (
         ("_fused_enable", "determine"), ("_fused_edge_verdict", "edges"),
         ("_fused_window_verdict", "middle"))]
@@ -2074,12 +2465,12 @@ def phase_trim(dev):
         out_path = os.path.join(d, "trimmed.fastq")
         torch.cuda.reset_peak_memory_stats()
         with patched(subs), counted_reruns() as reruns:
-            cuda_chain.chain_scan.launches = 0
+            zero_launches()
             t0 = time.perf_counter()
             err = run_trim(path, dev.type, out_path)
             sync(dev)
             wall = time.perf_counter() - t0
-            launches = cuda_chain.chain_scan.launches
+            launches = path_launches("trim", trim_kernels)
         peak = torch.cuda.max_memory_allocated()
         out_bytes = os.path.getsize(out_path)
         split = [int(ln.split()[0]) for ln in err.splitlines()
@@ -2092,31 +2483,33 @@ def phase_trim(dev):
             f"{spent['mid_finish']:.3f} s + write {spent['write']:.3f} s + "
             f"the rest {rest:.3f} s (parsing, edge cuts, stream feed); "
             f"middle-window packing and dispatch on the worker thread "
-            f"{spent['mid_add']:.3f} s, beside the edge pass; chain launches "
-            f"{launches}, by stage {dict(per_stage)}; re-runs at collect "
+            f"{spent['mid_add']:.3f} s, beside the edge pass; launches "
+            f"{launches}, by (kernel, stage) {dict(per_stage)}; re-runs at "
+            f"collect "
             f"{reruns['reruns']}; peak device memory {peak} bytes; "
             f"{out_bytes} bytes out; split {split} of {planted} chimeras")
         log("trim stderr: " + " | ".join(
             ln for ln in err.splitlines() if not ln.startswith(
                 ("Front adapter:", "Back adapter:"))))
-        log(f"trim's first {TRIM_RECORDED} chain launches of each stage "
-            f"against the plain version:")
-        errs = check_recorded(calls)
-        if sum(per_stage.values()) != launches:
-            raise SystemExit(f"trim's launches by stage {dict(per_stage)} "
-                             f"do not add up to the kernel's count "
-                             f"{launches}")
-        for stage in ("determine", "edges", "middle"):
-            if per_stage[stage] <= 0 or recorded[stage] <= 0:
-                raise SystemExit(f"trim's {stage} stage launched no "
-                                 f"chain_scan kernel")
+        log(f"trim's first {TRIM_RECORDED} chain and anchor launches of "
+            f"each stage against the plain versions:")
+        check_recorded(calls)
+        for name in trim_kernels:
+            by_stage = sum(n for (k, _), n in per_stage.items() if k == name)
+            if by_stage != launches[name]:
+                raise SystemExit(f"trim's {name} launches by stage "
+                                 f"{dict(per_stage)} do not add up to the "
+                                 f"kernel's count {launches[name]}")
+            for stage in ("determine", "edges", "middle"):
+                if per_stage[name, stage] <= 0 or recorded[name, stage] <= 0:
+                    raise SystemExit(f"trim's {stage} stage launched no "
+                                     f"{name} kernel")
         if not split or split[0] < TRIM_SPLIT_MIN * planted:
             raise SystemExit(f"trim split {split} reads of {planted} "
                              f"planted chimeras")
         profile_trim(path, dev)
         trim_card_vs_cpu(path, d)
     trim_golden(dev)
-    return launches, errs["chain_scan"]
 
 
 def profile_trim(path: str, dev, out_path=PROFILE_TRIM_OUT):
@@ -2316,20 +2709,19 @@ def run_cli(argv, device: str, listing=None) -> tuple:
 
 
 def grid_counted(name: str, dev, calls: list, run):
-    """``run()`` with the chain launches recorded into ``calls`` and
-    counted from 0; returns (its result, the launch count, seconds)."""
-    from downpore_tpu_torch.ops import cuda_chain
-    cuda_chain.chain_scan.launches = 0
-    with patched([(cuda_chain, "_launch", recording(
-            cuda_chain._launch, cuda_chain.chain_scan_plain, calls))]):
+    """``run()`` with the path kernels' launches recorded into ``calls``
+    and counted from 0; returns (its result, the launch counts, seconds).
+    Every grid run chains and builds anchors."""
+    zero_launches()
+    with patched(record_all(calls)):
         t0 = time.perf_counter()
         out = run()
         sync(dev)
         wall = time.perf_counter() - t0
-    launches = cuda_chain.chain_scan.launches
-    log(f"grid {name}: {wall:.3f} s, chain_scan launches {launches}")
-    if launches <= 0:
-        raise SystemExit(f"grid {name} launched no chain_scan kernel")
+    launches = launch_counts()
+    log(f"grid {name}: {wall:.3f} s, launches {launches}")
+    if launches["chain_scan"] <= 0 or launches["anchors_topk"] <= 0:
+        raise SystemExit(f"grid {name} launched {launches}")
     return out, launches, wall
 
 
@@ -2345,13 +2737,13 @@ def phase_grid(mapper, reads, dev):
     ``overlap`` (2 x 2) on the first GRID_OV_READS reads of the overlap
     case against the unsharded run; ``trim -data_parallel true`` (1 x 1
     and a 2-way data grid on the card) against the golden digest.
-    Returns the chain launches of the timed map passes, the sharded
-    overlap and the trims, and the max abs error of every recorded
-    launch of the phase against the plain version."""
+    The path kernels' launches of the timed map passes, the sharded
+    overlap and the trims go to ``PATH_LAUNCHES["grid"]``; every recorded
+    launch of the phase is held against its plain version."""
     import hashlib
     import tempfile
+    from collections import Counter
     from downpore_tpu_torch.mapping import Mapper
-    from downpore_tpu_torch.ops import cuda_chain
     from downpore_tpu_torch.parallel import make_mesh
     from downpore_tpu_torch.utils import kmer_occurrences, score_seed_values
 
@@ -2398,12 +2790,12 @@ def phase_grid(mapper, reads, dev):
     t0 = time.perf_counter()
     warm, _, _ = grid_counted("map warm-up pass (recorded)", dev, calls,
                               lambda: gm.map_batch(reads))
-    log(f"grid map warm-up pass: its {len(calls)} chain launches against "
-        f"the plain version:")
-    err = check_recorded(calls).get("chain_scan", 0)
+    log(f"grid map warm-up pass: its {len(calls)} recorded launches "
+        f"against the plain versions:")
+    check_recorded(calls)
     calls.clear()
     eng.routes.clear()
-    cuda_chain.chain_scan.launches = 0
+    zero_launches()
     walls = []
     with counted_reruns() as reruns:
         for _ in range(TIMED_PASSES):
@@ -2411,7 +2803,7 @@ def phase_grid(mapper, reads, dev):
             results = gm.map_batch(reads)
             sync(dev)
             walls.append(time.perf_counter() - t0)
-    map_launches = cuda_chain.chain_scan.launches
+    map_launches = launch_counts()
     got = [gm.as_string(m) for ms in results for m in ms]
     warm_paf = [gm.as_string(m) for ms in warm for m in ms]
     bases = sum(len(r) for r in reads)
@@ -2419,12 +2811,10 @@ def phase_grid(mapper, reads, dev):
     same = got == plain == warm_paf
     log(f"grid map_batch (2 x 2 on the card), {TIMED_PASSES} passes: wall "
         f"{', '.join(f'{w:.4f}' for w in walls)} s; median {wall:.4f} s = "
-        f"{bases / wall:.0f} bases/s; chain_scan launches {map_launches}; "
+        f"{bases / wall:.0f} bases/s; launches {map_launches}; "
         f"routes {dict(eng.routes)}; re-runs at collect "
         f"{reruns['reruns']}; {len(got)} PAF lines, equal to the "
         f"unsharded mapper's: {same}")
-    if map_launches <= 0:
-        raise SystemExit("the grid map launched no chain_scan kernel")
     if not same or not got:
         raise SystemExit("the 2 x 2 grid's PAF differs from the unsharded "
                          "mapper's")
@@ -2489,24 +2879,29 @@ def phase_grid(mapper, reads, dev):
         with open(path, "w") as f:
             f.writelines(f"@{n}\n{s}\n+\n{'I' * len(s)}\n"
                          for n, s in golden_trim_records())
-        trim_launches = 0
+        trim_launches = Counter()
         for name, listing in (("1 x 1", None), ("2-way data", [dev] * 2)):
             (out, _), n, _ = grid_counted(
                 f"trim -data_parallel true ({name})", dev, calls,
                 lambda: run_cli(["trim", "-input", path, "-data_parallel",
                                  "true"] + GRID_TRIM_FLAGS, dev.type,
                                 listing))
-            trim_launches += n
+            trim_launches.update(n)
             digest = hashlib.sha256(out.encode()).hexdigest()
             log(f"grid trim ({name} grid on the card): sha256 {digest}")
             if digest != TRIM_GOLDEN_DIGEST:
                 raise SystemExit("trim -data_parallel true differs from the "
                                  "golden digest")
-    log(f"grid overlap and trims: their {len(calls)} chain launches "
-        f"against the plain version:")
-    err = max(err, check_recorded(calls).get("chain_scan", 0))
-    log(f"phase_grid: {time.perf_counter() - t_phase:.1f} s")
-    return map_launches + ov_launches + trim_launches, err
+    log(f"grid overlap and trims: their {len(calls)} recorded launches "
+        f"against the plain versions:")
+    check_recorded(calls)
+    total = Counter(map_launches) + Counter(ov_launches) + trim_launches
+    PATH_LAUNCHES["grid"] = {k: total[k] for k in PATH_KERNELS}
+    log(f"phase_grid: {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{PATH_LAUNCHES['grid']}")
+    missing = [k for k in PATH_KERNELS if total[k] <= 0]
+    if missing:
+        raise SystemExit(f"the grid paths launched no {missing} kernel")
 
 
 # the library phase: a map-scale retrieval shape (4096 query rows of a
@@ -2651,9 +3046,8 @@ def phase_library(dev):
     on a same-card 2 x 2 grid against no grid; ``sharded_pipeline_step``
     on a 1 x 1 and a same-card 2 x 2 grid against the unsharded functions;
     the verify skill's recipe.  Every chain launch of the phase is
-    recorded and held against the plain scan.  Returns (chain launches,
-    max abs error of those launches, hit_counts (ms, packed ms, bound ms,
-    bound_by))."""
+    recorded and held against the plain scan.  Returns hit_counts' (ms,
+    packed ms, bound ms, bound_by)."""
     from downpore_tpu_torch.ops import chain, cuda_chain, match
     from downpore_tpu_torch.parallel import make_mesh, sharded_pipeline_step
 
@@ -2689,7 +3083,7 @@ def phase_library(dev):
     del Vd, packed, bits
 
     calls = []
-    cuda_chain.chain_scan.launches = 0
+    zero_launches()
     with patched([(cuda_chain, "_launch", recording(
             cuda_chain._launch, cuda_chain.chain_scan_plain, calls))]):
         qs, qp, ts, tp = library_pairs(rng)
@@ -2748,15 +3142,16 @@ def phase_library(dev):
             raise SystemExit(f"the library recipe recovered {recovered} of "
                              f"{n_q} planted positions")
     launches = cuda_chain.chain_scan.launches
+    PATH_LAUNCHES["library"] = launch_counts()
     log(f"library phase: chain_scan launches {launches}; their "
         f"{len(calls)} recorded launches against the plain version:")
-    err = check_recorded(calls).get("chain_scan", 0)
+    check_recorded(calls)
     if launches <= 0 or len(calls) != launches:
         raise SystemExit("the library phase's chain launches were not all "
                          "recorded")
     log(f"phase_library: {time.perf_counter() - t_phase:.1f} s (recipe "
         f"{t_recipe:.1f} s)")
-    return launches, err, (hc_ms, pk_ms) + hc_bound
+    return (hc_ms, pk_ms) + hc_bound
 
 
 # the bench sections this smoke runs at the bench's own sizes: the GB
@@ -2776,7 +3171,7 @@ def phase_bench(dev):
     import io
     import tempfile
     import downpore_tpu_torch.bench as bench
-    from downpore_tpu_torch.ops import cuda_beam, cuda_chain
+    from downpore_tpu_torch.ops import cuda_beam
 
     t0 = time.perf_counter()
     out = io.StringIO()
@@ -2787,14 +3182,14 @@ def phase_bench(dev):
             with patched([(bench, "RUNNING_JSON",
                            os.path.join(d, "running.jsonl")),
                           (bench, "MAP_CASES", bench.MAP_CASES[:2])]):
-                cuda_chain.chain_scan.launches = 0
+                zero_launches()
                 cuda_beam.beam_consensus.launches = 0
                 with contextlib.redirect_stdout(out):
                     rc = bench.main(list(BENCH_SECTIONS))
                 sync(dev)
-                launches = {
-                    "chain_scan": cuda_chain.chain_scan.launches,
-                    "beam_consensus": cuda_beam.beam_consensus.launches}
+                launches = dict(
+                    path_launches("bench sections"),
+                    beam_consensus=cuda_beam.beam_consensus.launches)
         finally:
             tempfile.tempdir = old_tmp
     rows = [json.loads(ln) for ln in out.getvalue().splitlines()
@@ -2811,7 +3206,7 @@ def phase_bench(dev):
     name = torch.cuda.get_device_name(0)
     if any(name not in r.get("device", "") for r in rows):
         raise SystemExit("a bench line lacks the card's name")
-    if launches["chain_scan"] <= 0 or launches["beam_consensus"] <= 0:
+    if launches["beam_consensus"] <= 0:
         raise SystemExit(f"the bench sections launched {launches}")
     return rows, launches
 
@@ -2844,7 +3239,8 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
         f"CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    names = ("chain_scan", "band_update", "beam_consensus")
+    names = ("chain_scan", "band_update", "beam_consensus", "anchors_topk",
+             "retrieval_count")
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(_build.load, names))
@@ -2867,19 +3263,21 @@ def main() -> int:
     band_err, band_ms, band_plain_ms, band_bound, band_by = phase_band(dev)
     beam_err, (beam_ms, beam_plain_ms, beam_bound_ms, beam_by) = \
         phase_beam(dev)
-    mapper, reads, map_launches = phase_slice(dev)
+    for name, err in phase_anchor_counts(dev).items():
+        RECORDED_ERRS[name] = max(RECORDED_ERRS.get(name, 0), err)
+    mapper, reads, _ = phase_slice(dev)
     phase_profile(mapper, reads)
     map_dispatch_case("map 4.6 Mb", mapper, reads)
     phase_card_vs_cpu(mapper, reads)
-    grid_launches, grid_err = phase_grid(mapper, reads, dev)
+    phase_grid(mapper, reads, dev)
     del mapper, reads
-    chr_launches, chr_err = phase_chromosome(dev)
-    correct_records, correct_launches, correct_errs = phase_correct(dev)
+    phase_chromosome(dev)
+    correct_records, correct_launches = phase_correct(dev)
     profile_correct(correct_records, dev)
     phase_correct_card_vs_cpu()
-    ov_launches, ov_err = phase_overlap(dev)
-    trim_launches, trim_err = phase_trim(dev)
-    lib_launches, lib_err, hc = phase_library(dev)
+    phase_overlap(dev)
+    phase_trim(dev)
+    hc = phase_library(dev)
     _, bench_launches = phase_bench(dev)
     if "jax" in sys.modules:
         raise SystemExit("the port's map, overlap, correct, trim, library "
@@ -2921,13 +3319,31 @@ def main() -> int:
     # update_bands runs on no path: in the JAX package the Pallas band
     # kernel is test-only, and its step is the beam kernel's inner loop
     from downpore_tpu_torch.ops import cuda_chain
-    log(f"launches by path: map chain_scan {map_launches}; chromosome map "
-        f"chain_scan {chr_launches}; correct {correct_launches}; overlap "
-        f"chain_scan {ov_launches}; trim chain_scan {trim_launches}; "
-        f"grid paths chain_scan {grid_launches}; library chain_scan "
-        f"{lib_launches}; bench sections {bench_launches}; "
-        f"chain_scan by mode over the whole run "
-        f"{dict(cuda_chain.MODE_LAUNCHES)}")
+    log(f"launches by path: {PATH_LAUNCHES}; correct {correct_launches}; "
+        f"bench sections {bench_launches}; chain_scan by mode over the "
+        f"whole run {dict(cuda_chain.MODE_LAUNCHES)}")
+    log("anchors_topk and retrieval_count at the path shapes (the largest "
+        "launch of each kind in one eager dispatch + collect of each "
+        "phase_dispatch case; kernel ms / plain ms / library ms / bound ms "
+        "(by) / share): " + "; ".join(
+            f"{r['name']} {r['kind']} at {r['path']} [{r['shape']}] "
+            f"{r['ms']:.4f} / {r['plain_ms']:.3f} / "
+            + (f"{r['library_ms']:.4f}" if r["library_ms"] is not None
+               else "null")
+            + f" / {r['bound_ms']:.4f} ({r['bound_by']}) / "
+            f"{r['bound_ms'] / r['ms']:.3f}" for r in KERNEL_ROWS))
+    total = {k: sum(v[k] for v in PATH_LAUNCHES.values())
+             for k in PATH_KERNELS}
+    # the new kernels' line: the map 4.6 Mb dispatch's launches
+    row_of = {}
+    for name, kind in (("anchors_topk", "indexed"),
+                       ("retrieval_count", "flat + first")):
+        rows = [r for r in KERNEL_ROWS if r["name"] == name
+                and r["kind"] == kind and r["path"] == "map 4.6 Mb"]
+        if not rows or name not in RECORDED_ERRS:
+            raise SystemExit(f"{name} was not timed at the map 4.6 Mb "
+                             f"shape or never recorded")
+        row_of[name] = rows[0]
     log(f"hit_counts (a library product, not a TPU kernel): {hc[0]:.4f} "
         f"ms, packed {hc[1]:.4f} ms, bound {hc[2]:.4f} ms ({hc[3]})")
     log("chain_scan at the path shapes: " + "; ".join(
@@ -2941,11 +3357,8 @@ def main() -> int:
         "name": "chain_scan", "route": "cuda",
         "source": "downpore_tpu_torch/csrc/chain_scan.cu",
         "replaces": "downpore_tpu/ops/pallas_chain.py:42",
-        "launches": map_launches + chr_launches
-        + correct_launches["chain_scan"] + ov_launches + trim_launches
-        + grid_launches + lib_launches + bench_launches["chain_scan"],
-        "max_abs_err": max(max_err, chr_err, correct_errs["chain_scan"],
-                           ov_err, trim_err, grid_err, lib_err),
+        "launches": total["chain_scan"],
+        "max_abs_err": max(max_err, RECORDED_ERRS["chain_scan"]),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": chain_bound_ms,
         "bound_by": chain_by, "library_ms": None}, {
         "name": "update_bands", "route": "cuda",
@@ -2959,9 +3372,22 @@ def main() -> int:
         "replaces": "downpore_tpu/ops/pallas_beam.py:105",
         "launches": correct_launches["beam_consensus"]
         + bench_launches["beam_consensus"],
-        "max_abs_err": max(beam_err, correct_errs["beam_consensus"]),
+        "max_abs_err": max(beam_err, RECORDED_ERRS["beam_consensus"]),
         "ms": beam_ms, "plain_ms": beam_plain_ms, "bound_ms": beam_bound_ms,
         "bound_by": beam_by, "library_ms": None}]
+    sources = {"anchors_topk": ("downpore_tpu_torch/csrc/anchors_topk.cu",
+                                "downpore_tpu/ops/chain.py:57"),
+               "retrieval_count": (
+                   "downpore_tpu_torch/csrc/retrieval_count.cu",
+                   "downpore_tpu/ops/map_engine.py:142")}
+    for name, (source, replaces) in sources.items():
+        r = row_of[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": total[name],
+            "max_abs_err": RECORDED_ERRS[name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from . import cuda_anchors
 from .cuda_chain import chain_scan_fb, chain_scan_lean
 # the gap windows live beside the plain scan that uses them; re-exported
 # under the JAX module's name
@@ -96,35 +97,12 @@ def make_anchors_topk(qseeds, qpos, tseeds, tpos, per_seed: int = 2):
     of ``[P, NQ * per_seed]`` arrays ``qi, tj, qp, tp, valid`` in (i, j)
     row-major order, plus the per-pair ``overflow`` count of dropped
     matches.  A missing occurrence has ``qi = -1``, ``tj = 0`` and zero
-    positions, as ``jnp.argmax`` over an all-false row gives."""
-    P, NQ = qseeds.shape
-    NT = tseeds.shape[1]
-    dev = qseeds.device
-    eq = (qseeds[:, :, None] == tseeds[:, None, :]) \
-        & (qseeds[:, :, None] >= 0) & (tseeds[:, None, :] >= 0)
-    iota_dt = torch.int16 if NT < (1 << 15) else torch.int32
-    iota = torch.arange(NT, dtype=iota_dt, device=dev)
-    cur = eq
-    js, hits = [], []
-    for _ in range(per_seed):
-        first = torch.where(cur, iota, NT).amin(dim=2).long()    # [P, NQ]
-        hit = first < NT
-        j = torch.where(hit, first, 0)
-        js.append(j)
-        hits.append(hit)
-        if len(js) < per_seed:
-            cur = cur & (iota != j[:, :, None])
-    A = NQ * per_seed
-    tj = torch.stack(js, dim=2).reshape(P, A)
-    valid = torch.stack(hits, dim=2).reshape(P, A)
-    qi = torch.arange(NQ, device=dev).repeat_interleave(per_seed)
-    qi = torch.where(valid, qi[None, :], -1).to(torch.int32)
-    qp = torch.where(valid, qpos.repeat_interleave(per_seed, dim=1), 0)
-    tp = torch.where(valid, torch.gather(tpos, 1, tj), 0)
-    overflow = eq.sum(dim=(1, 2)) - valid.sum(dim=1)
-    return {"qi": qi, "tj": tj.to(torch.int32), "qp": qp.to(torch.int32),
-            "tp": tp.to(torch.int32), "valid": valid,
-            "overflow": overflow.to(torch.int32)}
+    positions, as ``jnp.argmax`` over an all-false row gives.  CPU tensors
+    run the plain version, CUDA tensors one launch of the anchor kernel
+    (``cuda_anchors.anchors_topk``); ``per_seed`` must be 2, the engines'
+    cap, which is all the kernel keeps."""
+    return cuda_anchors.as_dict(cuda_anchors.anchors_topk(
+        qseeds, qpos, tseeds, tpos, per_seed))
 
 
 def anchors_of_slots(live, build):

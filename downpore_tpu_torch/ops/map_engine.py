@@ -88,8 +88,9 @@ from .. import resolve_device
 from ..parallel.mesh import DeviceGrid
 from . import captured
 from . import match as match_ops
-from .chain import anchors_of_slots, make_anchors_topk, dp_from_anchors, \
-    dp_forward_lean, summarize_dp, compact_indices
+from . import cuda_anchors, cuda_counts
+from .chain import anchors_of_slots, dp_from_anchors, dp_forward_lean, \
+    summarize_dp, compact_indices
 from .transfer import HostCopy, Pending, on_device
 
 # binned-retrieval engagement threshold and bin width, the JAX engine's
@@ -98,64 +99,18 @@ from .transfer import HostCopy, Pending, on_device
 _BINNED_MIN_C = 1024
 _BINNED_CB = 128
 
-# bound on the [m, R, C] int8 block one retrieval gather materializes
-_GATHER_ELEMS = 1 << 28
-
-
-def _anchor_chunk(nq: int, nt: int) -> int:
-    """Pairs per anchor-build step: the ``[CH, nq, nt]`` equality tensor
-    stays near 512 MB, and the steps few: each is ~30 kernels, and a
-    dispatch whose kernels overrun the card's launch queue waits for the
-    device.  (The JAX engine's steps, 1024 pairs, only bound its
-    memory.)"""
-    return max(128, min(8192, (1 << 29) // max(1, nq * nt)))
-
-
-def _row_chunks(M: int, R: int, C: int):
-    """Row slices that keep each gathered ``[m, R, C]`` block under
-    ``_GATHER_ELEMS`` elements (the JAX engine's ``lax.map`` chunking)."""
-    if M * R * C <= _GATHER_ELEMS:
-        return [slice(0, M)]
-    mc = max(1, _GATHER_ELEMS // max(1, R * C))
-    mc = max(8, (mc // 8) * 8)
-    return [slice(lo, min(M, lo + mc)) for lo in range(0, M, mc)]
-
-
-def _gather_rows(membership, b):
-    """``membership`` rows of bucket slots ``b [m, R]`` (pad -1 -> 0)."""
-    live = b >= 0
-    rows = membership[b.clamp(min=0).long()]                  # [m, R, C]
-    return torch.where(live[:, :, None], rows, 0)
-
-
 def _count_rows(membership, buckets):
     """Retrieval hit counts: ``buckets [M, R]`` (pad -1) -> ``[M, C]``
     int32, the sum of the int8 membership rows of each row's live
-    buckets."""
-    C = membership.shape[1]
-    M, R = buckets.shape
-    out = torch.empty((M, C), dtype=torch.int32, device=membership.device)
-    for sl in _row_chunks(M, R, C):
-        out[sl] = _gather_rows(membership, buckets[sl]).sum(
-            dim=1, dtype=torch.int32)
-    return out
+    buckets (``cuda_counts``: one kernel launch on a card)."""
+    return cuda_counts.retrieval_count(membership, buckets)[0]
 
 
 def _count_rows_pair(membership, rb, db):
     """Run and distinct retrieval counts from one gather: on the derived
     path the distinct buckets ``db`` are ``rb`` with duplicate slots
     masked to -1 (same slot layout), so the ``rb`` rows serve both sums."""
-    C = membership.shape[1]
-    M, R = rb.shape
-    first = db >= 0
-    c = torch.empty((M, C), dtype=torch.int32, device=membership.device)
-    d = torch.empty_like(c)
-    for sl in _row_chunks(M, R, C):
-        rows = _gather_rows(membership, rb[sl])
-        c[sl] = rows.sum(dim=1, dtype=torch.int32)
-        d[sl] = torch.where(first[sl][:, :, None], rows, 0).sum(
-            dim=1, dtype=torch.int32)
-    return c, d
+    return cuda_counts.retrieval_count(membership, rb, db >= 0)
 
 
 def _shard_counts(buckets, *, lo: int, **block):
@@ -252,23 +207,16 @@ def _derive_buckets(q_seeds, usable, H: int, hashed: bool):
 
 def _build_anchors(mi, ci, live, q_seeds, q_pos, t_seeds, t_pos):
     """Anchors (``make_anchors_topk``, 2 target occurrences per query
-    seed) of the selected (query row, chunk) pairs, built
-    ``_anchor_chunk`` pairs at a time to bound the ``[chunk, nq, nt]``
-    equality tensor.  A budget slot past the passing count (``live``
-    False) points at row 0 and gets no query seed, so it has no valid
-    anchor and its chain is empty."""
-    chunk = _anchor_chunk(q_seeds.shape[1], t_seeds.shape[1])
-
+    seed) of the selected (query row, chunk) pairs: on a card one launch of
+    the anchor kernel over every budget slot, reading the rows by index
+    (``cuda_anchors.anchors_topk_indexed``).  A budget slot past the
+    passing count (``live`` False) points at row 0 and gets no query seed,
+    so it has no valid anchor and its chain is empty."""
     def build(rows):
         m, c, on = (mi, ci, live) if rows is None \
             else (mi[rows], ci[rows], live[rows])
-        parts = []
-        for lo in range(0, max(1, m.shape[0]), chunk):
-            m_c, c_c = m[lo:lo + chunk], c[lo:lo + chunk]
-            qs = torch.where(on[lo:lo + chunk, None], q_seeds[m_c], -1)
-            parts.append(make_anchors_topk(qs, q_pos[m_c], t_seeds[c_c],
-                                           t_pos[c_c], per_seed=2))
-        return {key: torch.cat([p[key] for p in parts]) for key in parts[0]}
+        return cuda_anchors.as_dict(cuda_anchors.anchors_topk_indexed(
+            m, c, on, q_seeds, q_pos, t_seeds, t_pos))
     return anchors_of_slots(live, build)
 
 
@@ -383,22 +331,10 @@ def _binned_counts_pair(flat, rb, first, topbin, NB: int, CB: int):
     ``rb [M, R]`` buckets (pad -1), ``first [M, R]`` mask of the slots the
     distinct count sums (None: no distinct count), ``topbin [M, BB]``
     selected bins.  Returns ``(counts, dcounts)`` ``[M, BB, CB]`` int32
-    (``dcounts`` None without ``first``).  Each gathered ``[m, R, BB, CB]``
-    block stays under ``_GATHER_ELEMS`` elements."""
-    M, R = rb.shape
-    BB = topbin.shape[1]
-    c = torch.empty((M, BB, CB), dtype=torch.int32, device=flat.device)
-    d = None if first is None else torch.empty_like(c)
-    for sl in _row_chunks(M, R, BB * CB):
-        b = rb[sl]
-        idx = b.clamp(min=0).long()[:, :, None] * NB \
-            + topbin[sl][:, None, :]                          # [m, R, BB]
-        rows = torch.where((b >= 0)[:, :, None, None], flat[idx], 0)
-        c[sl] = rows.sum(dim=1, dtype=torch.int32)
-        if d is not None:
-            d[sl] = torch.where(first[sl][:, :, None, None], rows, 0).sum(
-                dim=1, dtype=torch.int32)
-    return c, d
+    (``dcounts`` None without ``first``; ``cuda_counts``: one kernel launch
+    on a card)."""
+    out = cuda_counts.retrieval_count(flat, rb, first, topbin.long(), NB)
+    return out[0], (None if first is None else out[1])
 
 
 def _bb_final(n_bin: int, BB: int, NB: int) -> int:
@@ -440,7 +376,7 @@ def _binned_gate(membership, bin_mem, q_rb, q_db, rb1, db1, min_count,
     # order): a stable descending sort, not torch.topk
     key = torch.where(okb, c1, -1)
     topbin = torch.sort(key, dim=1, descending=True,
-                        stable=True).indices[:, :BB]
+                        stable=True).indices[:, :BB].contiguous()
     sel_live = torch.gather(okb, 1, topbin)
     flat = membership.reshape(H * NB, CB)
     if aligned_db:

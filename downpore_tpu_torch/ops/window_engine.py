@@ -86,7 +86,8 @@ from .transfer import HostCopy, Pending, upload
 _BIGM = 1 << 20  # impossible min-match for gate-failing pairs
 # bound on the [m, W, A] int8 block one gate gather materializes
 _GATHER_ELEMS = 1 << 28
-# pairs per anchor-build step: bounds the [chunk, NQ, W] equality tensor
+# pairs per step of the CPU's anchor build: bounds the [chunk, NQ, W]
+# equality tensor of the plain version
 _ANCHOR_CHUNK = 4096
 
 
@@ -143,23 +144,28 @@ def _gate_topk_pairs(kmers, lens, km_table, gate_min, chain_min,
 
 def _anchors_chunked(kmers, lens, a_seeds, a_pos, ei, ai, live=None,
                      chunk: int = _ANCHOR_CHUNK):
-    """Anchors of the (window ``ei``, adapter ``ai``) pairs, built
-    ``chunk`` pairs at a time.  The adapter tables are in k-mer space, so
-    window k-mers compare with them directly; positions past a window's
-    k-mer count are -1, and so is every position of a dead budget slot
-    (``live`` False), which therefore has no anchor
-    (``chain.anchors_of_slots``)."""
+    """Anchors of the (window ``ei``, adapter ``ai``) pairs: the adapter
+    tables are in k-mer space, so window k-mers compare with them directly;
+    positions past a window's k-mer count are -1, and so is every position
+    of a dead budget slot (``live`` False), which therefore has no anchor
+    (``chain.anchors_of_slots``).  On a card the pairs' rows are gathered
+    once and built in one launch of the anchor kernel (the rows, ``[P,
+    NQ]`` and ``[P, W]``, are small beside the ``[P, NQ, W]`` equality that
+    the kernel never writes); on the CPU the plain build goes ``chunk``
+    pairs at a time to bound that equality."""
     W = kmers.shape[1]
     pos = torch.arange(W, dtype=torch.int32, device=kmers.device)
 
     def build(rows):
         e_all, a_all, on = (ei, ai, live) if rows is None \
             else (ei[rows], ai[rows], live[rows])
+        step = chunk if kmers.device.type == "cpu" \
+            else max(1, e_all.shape[0])
         parts = []
-        for lo in range(0, max(1, e_all.shape[0]), chunk):
-            e, a = e_all[lo:lo + chunk], a_all[lo:lo + chunk]
+        for lo in range(0, max(1, e_all.shape[0]), step):
+            e, a = e_all[lo:lo + step], a_all[lo:lo + step]
             n_e = lens[e] if on is None else torch.where(
-                on[lo:lo + chunk], lens[e], 0)
+                on[lo:lo + step], lens[e], 0)
             ts = torch.where(pos[None, :] < n_e[:, None], kmers[e], -1)
             parts.append(make_anchors_topk(
                 a_seeds[a].to(torch.int32), a_pos[a].to(torch.int32), ts,

@@ -4,6 +4,8 @@ of two case sets.
     mkdir -p _chipcopy/a && git archive <commit> | tar -x -C _chipcopy/a
     python3 scripts/ab_paths.py _chipcopy/a _chipcopy/b [--rounds 3]
     python3 scripts/ab_paths.py _chipcopy/a _chipcopy/b --cases overlap_trim
+    python3 scripts/ab_paths.py _chipcopy/a _chipcopy/b --cases overlap_cli \
+        [--rounds 5]
     python3 scripts/ab_paths.py _chipcopy/a _chipcopy/b --cases beam \\
         [--rounds 2] [--jobs PKL] [--clocks]
 
@@ -26,17 +28,26 @@ end, and the chain DP through each tree's own entry points:
   profiled pass: device busy time and idle share, host waits in
   ``cudaStreamSynchronize``), one map dispatch of the 4.6 Mb case timed
   the same way for both trees (``map_dispatch``: its host wall time
-  beside the device span of the work it enqueued), and the tree's
+  beside the device span of the work it enqueued), the tree's
+  ``map_dispatch_case`` of that case (its ``phase_dispatch`` and
+  ``phase_graphs`` lines), and the tree's
   ``phase_chromosome`` (map, 64 Mb, with its profiled pass),
   ``phase_overlap`` (round 2 profiled) and ``phase_trim`` (an edge and a
   middle batch profiled), whose own checks must pass and whose logs give
   the end-to-end numbers (map bases/s and medians, overlap and trim wall
-  seconds, idle shares).
+  seconds, idle shares) and, from each ``phase_graphs`` line, a replayed
+  dispatch's device busy ms and its largest graph's nodes.
 
 ``--cases overlap_trim``: the tree's ``phase_overlap`` and ``phase_trim``
 alone (their wall seconds, idle shares, and one overlap sub-batch's and
 one trim edge batch's dispatch host ms from their ``phase_dispatch`` and
 ``phase_graphs`` lines).
+
+``--cases overlap_cli``: the tree's ``overlap`` command alone, as a user
+runs it (no phase wrappers, recordings or profiler), on the overlap case's
+input (``chip_smoke.write_overlap_reads``, written once before the turns
+into the temporary directory): its wall seconds to the last PAF line, its
+per-round stderr and PAF line count held to the recorded run.
 
 ``--cases beam``: the beam-consensus kernel.  First this script's own tree
 runs ``correct`` on the card on ``chip_smoke.correct_case()`` (2048 reads
@@ -134,6 +145,17 @@ METRICS = (
      r"^phase_graphs trim edge batch .*?host ms a dispatch ([\d.]+) "
      r"replayed", 1, 0),
 )
+# per phase_graphs path: the device busy ms of a replayed dispatch +
+# collect and the nodes of its largest graph
+GRAPH_PATHS = (("map", r"map 4\.6 Mb:"), ("chr", r"map 64 Mb"),
+               ("overlap", r"overlap round"), ("trim_edge", r"trim edge batch"),
+               ("trim_middle", r"trim middle batch"))
+METRICS += tuple(
+    m for key, name in GRAPH_PATHS for m in (
+        (f"{key}_graph_busy_ms", rf"^phase_graphs {name}.*?device busy "
+         r"\(profiler\) ([\d.]+) vs", 1, 0),
+        (f"{key}_graph_nodes", rf"^phase_graphs {name}.*?nodes a graph "
+         r"\[(?:\d+, )*(\d+)\]", 1, 0)))
 # the metrics of the overlap_trim case set
 OVERLAP_TRIM = tuple(m for m in METRICS
                      if m[0].startswith(("overlap_", "trim_")))
@@ -252,6 +274,7 @@ def paths_turn(tree: str, recipe) -> dict:
     mapper, reads, _ = smoke.phase_slice(dev)
     smoke.phase_profile(mapper, reads)
     map_dispatch(mapper, reads)
+    smoke.map_dispatch_case("map 4.6 Mb", mapper, reads)
     del mapper, reads
     result["phase_s"]["phase_slice"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
@@ -279,6 +302,44 @@ def overlap_trim_turn(tree: str, recipe) -> dict:
         result["phase_s"][name] = time.perf_counter() - t0
         torch.cuda.empty_cache()
     return result
+
+
+def ov_cli_input() -> str:
+    import tempfile
+    return os.path.join(tempfile.gettempdir(), "ab_overlap_reads.fasta")
+
+
+def overlap_cli_turn(tree: str, recipe) -> dict:
+    """The tree's ``overlap`` CLI on ``ov_cli_input()``, uninstrumented."""
+    import contextlib
+    import io
+    import tempfile
+    import torch
+    from downpore_tpu_torch.cli.main import main as cli_main
+    err = io.StringIO()
+    out_path = os.path.join(tempfile.gettempdir(),
+                            f"ab_overlap_{os.getpid()}.paf")
+    try:
+        t0 = time.perf_counter()
+        with open(out_path, "w", buffering=1 << 22) as out, \
+                contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            cli_main(["overlap", "-input", ov_cli_input()])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(out_path, "rb") as f:
+            n_paf = sum(chunk.count(b"\n") for chunk in iter(
+                lambda: f.read(1 << 24), b""))
+    finally:
+        if os.path.exists(out_path):
+            os.remove(out_path)
+    rounds = [ln for ln in err.getvalue().splitlines()
+              if ln.startswith(("Using query set", "Total "))]
+    if rounds != recipe.OV_STDERR or n_paf != recipe.OV_PAF_LINES:
+        raise SystemExit(f"overlap's stderr or its {n_paf} PAF lines differ "
+                         f"from the recorded run")
+    print(f"AB overlap CLI: wall {wall:.3f} s", flush=True)
+    return {}
 
 
 def metric_ranges(recs, trees, summary, metrics) -> None:
@@ -490,12 +551,17 @@ def clocks(tree: str) -> int:
     return 0
 
 
+OVERLAP_CLI = (("overlap_cli_wall_s", r"^AB overlap CLI: wall ([\d.]+) s",
+                1, 0),)
 CASES = {"paths": (paths_turn, paths_summary),
          "overlap_trim": (overlap_trim_turn, functools.partial(
              metric_ranges, metrics=OVERLAP_TRIM)),
+         "overlap_cli": (overlap_cli_turn, functools.partial(
+             metric_ranges, metrics=OVERLAP_CLI)),
          "beam": (beam_turn, beam_summary)}
 # the log metrics each case set reads
-CASE_METRICS = {"paths": METRICS, "overlap_trim": OVERLAP_TRIM, "beam": ()}
+CASE_METRICS = {"paths": METRICS, "overlap_trim": OVERLAP_TRIM,
+                "overlap_cli": OVERLAP_CLI, "beam": ()}
 
 
 def turn(tree: str, cases: str) -> int:
@@ -563,6 +629,8 @@ def main() -> int:
             capture()
         elif os.path.abspath(args.jobs) != JOBS:
             shutil.copyfile(args.jobs, JOBS)
+    if args.cases == "overlap_cli":
+        _recipe().write_overlap_reads(ov_cli_input())
     trees = {"a": args.trees[0], "b": args.trees[1]}
     order = [("a", "b", "b", "a")[j % 4] for j in range(2 * args.rounds)]
     recs = []

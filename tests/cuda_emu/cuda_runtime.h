@@ -1,5 +1,6 @@
-// A CPU emulation of the CUDA features that csrc/beam_consensus.cu uses,
-// so that its source compiles with a host C++20 compiler and runs in a test
+// A CPU emulation of the CUDA features that csrc/beam_consensus.cu,
+// csrc/anchors_topk.cu and csrc/retrieval_count.cu use, so that their
+// sources compile with a host C++20 compiler and runs in a test
 // without a card: one std::thread per CUDA thread, the blocks of a launch
 // one after another, each warp collective (shuffles, votes, reductions) a
 // rendezvous of the warp's 32 threads and __syncthreads a barrier of the
@@ -9,7 +10,7 @@
 // contraction off: compile with -ffp-contract=off).
 //
 // The kernel source needs two textual changes first (see
-// tests/test_torch_kernels.py:emulated_kernel): its dynamic shared array
+// tests/test_torch_kernels.py:emulated_source): its dynamic shared array
 // becomes a pointer to the block's buffer and its launch a call of
 // emu_launch.
 #pragma once
@@ -67,6 +68,19 @@ inline int cudaMemcpyFromSymbol(void* dst, const T& sym, size_t n) {
   return 0;
 }
 
+struct alignas(8) int2 {
+  int x, y;
+};
+struct alignas(16) int4 {
+  int x, y, z, w;
+};
+struct alignas(2) uchar2 {
+  unsigned char x, y;
+};
+inline int2 make_int2(int x, int y) { return {x, y}; }
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
+inline uchar2 make_uchar2(unsigned char x, unsigned char y) { return {x, y}; }
+
 struct EmuDim {
   unsigned x = 0, y = 0, z = 0;
 };
@@ -112,6 +126,13 @@ inline int __reduce_min_sync(unsigned, int v) {
   emu_exchange(v, a);
   int m = (int)a[0];
   for (int i = 1; i < 32; ++i) m = std::min(m, (int)a[i]);
+  return m;
+}
+inline int __reduce_add_sync(unsigned, int v) {
+  long long a[32];
+  emu_exchange(v, a);
+  int m = 0;
+  for (int i = 0; i < 32; ++i) m += (int)a[i];
   return m;
 }
 inline unsigned __ballot_sync(unsigned, bool p) {

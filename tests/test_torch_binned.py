@@ -22,6 +22,7 @@ from downpore_tpu.ops import match as jmatch
 from downpore_tpu.utils import kmer_occurrences
 from downpore_tpu.utils.kmers import score_seed_values
 from downpore_tpu_torch.mapping import Mapper as TorchMapper
+from downpore_tpu_torch.ops import cuda_counts
 from downpore_tpu_torch.ops import map_engine as tme
 from downpore_tpu_torch.ops import match as tmatch
 from test_binned import _mutate, _rand_seq, _reads
@@ -280,8 +281,8 @@ def test_binned_counts_pair_matches_jax(monkeypatch, bound):
                                        jnp.asarray(db >= 0),
                                        jnp.asarray(topbin), NB, CB)
     if bound:
-        monkeypatch.setattr(tme, "_GATHER_ELEMS", 8 * rb.shape[1] * BB * CB)
-        assert len(tme._row_chunks(rb.shape[0], rb.shape[1], BB * CB)) == 3
+        monkeypatch.setattr(cuda_counts, "_GATHER_ELEMS", 8 * rb.shape[1] * BB * CB)
+        assert len(cuda_counts._row_chunks(rb.shape[0], rb.shape[1], BB * CB)) == 3
     args = (torch.from_numpy(flat), torch.from_numpy(rb))
     c_g, d_g = tme._binned_counts_pair(*args, torch.from_numpy(db >= 0),
                                        torch.from_numpy(topbin), NB, CB)

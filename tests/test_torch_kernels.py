@@ -535,12 +535,11 @@ EMU_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "cuda_emu")
 
 
-@pytest.fixture(scope="module")
-def emulated_kernel(tmp_path_factory):
-    """csrc/beam_consensus.cu compiled for the CPU against
-    tests/cuda_emu/cuda_runtime.h (g++, C++20): its dynamic shared array
-    made a pointer to the emulated block's buffer and its launch a call of
-    emu_launch; loaded with ctypes."""
+def emulated_source(name, out_dir):
+    """csrc/<name>.cu compiled for the CPU against tests/cuda_emu/
+    cuda_runtime.h (g++, C++20): its dynamic shared array made a pointer to
+    the emulated block's buffer and its launch a call of emu_launch; loaded
+    with ctypes (skips without g++ or C++20's <barrier>)."""
     import ctypes
     import re
     import shutil
@@ -548,7 +547,7 @@ def emulated_kernel(tmp_path_factory):
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs g++ to build the emulated kernel")
-    with open(os.path.join(_build.CSRC, "beam_consensus.cu")) as f:
+    with open(os.path.join(_build.CSRC, name + ".cu")) as f:
         src = f.read()
     src, n_smem = re.subn(
         r"extern __shared__ __align__\(16\) unsigned char smem\[\];",
@@ -557,8 +556,7 @@ def emulated_kernel(tmp_path_factory):
         r"(\w+)<<<([^,]+),\s*([^,]+),\s*([^,]+),\s*\(cudaStream_t\)stream"
         r">>>\((\w+)\);", r"emu_launch(\1, \2, \3, \4, \5);", src)
     assert (n_smem, n_launch) == (1, 1)
-    out = tmp_path_factory.mktemp("beam_emu")
-    cpp, so = out / "beam_consensus.cpp", out / "beam_consensus.so"
+    cpp, so = out_dir / (name + ".cpp"), out_dir / (name + ".so")
     cpp.write_text(src)
     proc = subprocess.run(
         [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
@@ -567,7 +565,15 @@ def emulated_kernel(tmp_path_factory):
     if proc.returncode and "<barrier>" in proc.stderr:
         pytest.skip("g++ has no C++20 <barrier>")
     assert proc.returncode == 0, proc.stderr[-3000:]
-    lib = ctypes.CDLL(str(so))
+    return ctypes.CDLL(str(so))
+
+
+@pytest.fixture(scope="module")
+def emulated_kernel(tmp_path_factory):
+    """csrc/beam_consensus.cu under the emulation (``emulated_source``)."""
+    import ctypes
+    lib = emulated_source("beam_consensus",
+                          tmp_path_factory.mktemp("beam_emu"))
     lib.beam_consensus_launch.argtypes = [ctypes.c_void_p] * 9 \
         + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     lib.beam_consensus_launch.restype = ctypes.c_int
@@ -645,6 +651,319 @@ def test_beam_kernel_source_emulated_ragged(emulated_kernel, route):
     ref = cuda_beam.beam_consensus_ragged_plain(seqs, lens, firsts, shapes,
                                                 None, 5, 4, 300, 8, 5)
     assert torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0])
+
+
+def seed_rows(rng, P, NQ, NT, alphabet):
+    """Anchor-build inputs: ``[P, NQ]`` query and ``[P, NT]`` target seed
+    rows from a small alphabet (targets hold a seed more than twice, query
+    seeds repeat), -1 padded at random lengths, one row of each all -1,
+    with increasing int32 positions."""
+    qs = rng.integers(0, alphabet, (P, NQ)).astype(np.int32)
+    ts = rng.integers(0, alphabet, (P, NT)).astype(np.int32)
+    qs[np.arange(NQ)[None, :] >= rng.integers(0, NQ + 1, P)[:, None]] = -1
+    ts[np.arange(NT)[None, :] >= rng.integers(0, NT + 1, P)[:, None]] = -1
+    qs[P // 2] = -1
+    ts[P // 3] = -1
+    qpos = np.cumsum(rng.integers(1, 40, (P, NQ)), axis=1).astype(np.int32)
+    tpos = np.cumsum(rng.integers(1, 40, (P, NT)), axis=1).astype(np.int32)
+    return [torch.from_numpy(a) for a in (qs, qpos, ts, tpos)]
+
+
+def slot_rows(rng, P, M, C):
+    """An engine's pair-budget slots: int64 rows into ``M`` query and ``C``
+    target rows, the first of them live, the rest dead at row 0."""
+    n_live = int(rng.integers(1, P))
+    live = torch.arange(P) < n_live
+    mi = torch.from_numpy(rng.integers(0, M, P)).where(live, 0)
+    ci = torch.from_numpy(rng.integers(0, C, P)).where(live, 0)
+    return mi, ci, live
+
+
+def count_inputs(rng, H, W, M, R, lo=0):
+    """Retrieval-count inputs: an int8 ``[H, W]`` membership (values in
+    [lo, 1], so a sign or a byte-order slip shows), ``[M, R]`` int32
+    buckets, -1 padded at random lengths with one row all -1, and a
+    ``first`` mask over the live slots."""
+    mem = rng.integers(lo, 2, (H, W)).astype(np.int8)
+    b = rng.integers(0, H, (M, R)).astype(np.int32)
+    b[np.arange(R)[None, :] >= rng.integers(0, R + 1, M)[:, None]] = -1
+    b[M // 2] = -1
+    first = (b >= 0) & (rng.random((M, R)) < 0.6)
+    return [torch.from_numpy(a) for a in (mem, b, first)]
+
+
+@pytest.fixture(scope="module")
+def emulated_anchors(tmp_path_factory):
+    """csrc/anchors_topk.cu under the emulation (``emulated_source``)."""
+    from downpore_tpu_torch.ops import cuda_anchors
+    return cuda_anchors._bind(emulated_source(
+        "anchors_topk", tmp_path_factory.mktemp("anchors_emu")))
+
+
+@pytest.fixture(scope="module")
+def emulated_counts(tmp_path_factory):
+    """csrc/retrieval_count.cu under the emulation (``emulated_source``)."""
+    from downpore_tpu_torch.ops import cuda_counts
+    return cuda_counts._bind(emulated_source(
+        "retrieval_count", tmp_path_factory.mktemp("counts_emu")))
+
+
+def _emulated_anchors(lib, *args):
+    from downpore_tpu_torch.ops import cuda_anchors
+    qs, mi = args[0], (args[4] if len(args) > 4 else None)
+    P = (qs if mi is None else mi).shape[0]
+    outs = cuda_anchors._outputs(P, qs.shape[1], qs.device)
+    for o in outs:
+        o.fill_(True if o.dtype == torch.bool else -7)
+    assert cuda_anchors._call(lib, outs, *args) == 0
+    return outs
+
+
+@pytest.mark.parametrize("NQ, NT, alphabet", [(70, 1100, 50), (32, 1, 3),
+                                               (5, 9, 3)])
+def test_anchor_kernel_source_emulated_rows(emulated_anchors, NQ, NT,
+                                            alphabet):
+    """The anchor kernel's source, run on the CPU under the emulation,
+    equals the plain version on rows: three seeds a lane in a tile of 1024
+    and a second tile, NT = 1, NQ below a warp."""
+    from downpore_tpu_torch.ops import cuda_anchors
+    args = seed_rows(np.random.default_rng(NQ + NT), 9, NQ, NT, alphabet)
+    got = _emulated_anchors(emulated_anchors, *args)
+    ref = cuda_anchors.anchors_topk_plain(*args)
+    assert int(ref[5].sum()) > 0 or NT == 1
+    for name, g, r in zip(cuda_anchors.KEYS, got, ref):
+        assert torch.equal(g, r), name
+
+
+def test_anchor_kernel_source_emulated_indexed(emulated_anchors):
+    """The indexed entry under the emulation equals the plain indexed
+    build: rows read by index, dead slots empty, over two query groups
+    (NQ = 300 > 8 seeds a lane)."""
+    from downpore_tpu_torch.ops import cuda_anchors
+    rng = np.random.default_rng(3)
+    tables = seed_rows(rng, 7, 300, 90, 40)
+    mi, ci, live = slot_rows(rng, 11, 7, 7)
+    got = _emulated_anchors(emulated_anchors, *tables, mi, ci, live)
+    ref = cuda_anchors.anchors_topk_plain(*tables, mi, ci, live)
+    assert not bool(got[4][~live].any()) and int(got[5][~live].abs().sum()) \
+        == 0
+    for name, g, r in zip(cuda_anchors.KEYS, got, ref):
+        assert torch.equal(g, r), name
+
+
+def _emulated_counts(lib, mem, b, first=None, topbin=None, NB=1):
+    from downpore_tpu_torch.ops import cuda_counts
+    outs = cuda_counts._outputs(mem, b, first, topbin)
+    for o in outs:
+        o.fill_(-7)
+    assert cuda_counts._call(lib, outs, mem, b, first, topbin, NB) == 0
+    return outs
+
+
+@pytest.mark.parametrize("W, R, with_first", [
+    (64, 20, True), (70, 20, True), (300, 40, False), (4200, 300, True)],
+    ids=["vec16", "bytes", "vec4", "two_tiles"])
+def test_count_kernel_source_emulated_flat(emulated_counts, W, R,
+                                           with_first):
+    """The retrieval-count kernel's source under the emulation equals the
+    plain version: 16-byte, 4-byte and 1-byte loads, a ragged tail (C not a
+    multiple of 16), two column tiles and two staging rounds (R = 300),
+    all-pad rows, with and without the ``first`` mask."""
+    from downpore_tpu_torch.ops import cuda_counts
+    mem, b, first = count_inputs(np.random.default_rng(W), 50, W, 5, R,
+                                 lo=-2)
+    first = first if with_first else None
+    got = _emulated_counts(emulated_counts, mem, b, first)
+    ref = cuda_counts.retrieval_count_plain(mem, b, first)
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_count_kernel_source_emulated_binned(emulated_counts):
+    """The binned form under the emulation equals the plain version with
+    BB = NB (every bin selected, in a shuffled order) and the first mask."""
+    from downpore_tpu_torch.ops import cuda_counts
+    rng = np.random.default_rng(12)
+    H0, NB, CB = 20, 6, 24
+    mem, b, first = count_inputs(rng, H0, NB * CB, 7, 30)
+    flat = mem.reshape(H0 * NB, CB)
+    topbin = torch.from_numpy(np.stack([rng.permutation(NB)
+                                        for _ in range(7)]))
+    got = _emulated_counts(emulated_counts, flat, b, first, topbin, NB)
+    ref = cuda_counts.retrieval_count_plain(flat, b, first, topbin, NB)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def _indexed_block(mi, ci, live, q_seeds, q_pos, t_seeds, t_pos):
+    from downpore_tpu_torch.ops import cuda_anchors
+    return cuda_anchors.anchors_topk_indexed(mi, ci, live, q_seeds, q_pos,
+                                             t_seeds, t_pos)
+
+
+def _count_block(mem, b, first=None, topbin=None, NB=1):
+    from downpore_tpu_torch.ops import cuda_counts
+    return cuda_counts.retrieval_count(mem, b, first, topbin, NB)
+
+
+def _replayed(fn, inputs, tables, **statics):
+    """``fn``'s block captured as a CUDA graph (``captured.GraphCache``,
+    a cache of its own) and then replayed on ``inputs``: returns the
+    replay's outputs and the launches that replay counted (each kernel's
+    ``launches`` before and after it)."""
+    from downpore_tpu_torch.ops import captured, cuda_anchors, cuda_counts
+    G = captured.GraphCache()
+    warm = {n: t.clone() for n, t in inputs.items()}
+    G.run(fn, warm, tables, **statics)
+    torch.cuda.synchronize()
+    kerns = (cuda_anchors.anchors_topk, cuda_counts.retrieval_count)
+    before = [k.launches for k in kerns]
+    out = G.run(fn, inputs, tables, **statics)
+    torch.cuda.synchronize()
+    assert sum(e.replays for e in G.entries.values()) == 1
+    return out, [k.launches - n for k, n in zip(kerns, before)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("NQ, NT, alphabet", [
+    (64, 320, 40), (128, 4096, 300), (70, 1100, 50), (300, 90, 40),
+    (5, 1, 3), (32, 64, 8)])
+def test_anchors_topk_kernel_matches_plain_on_card(cuda_device, NQ, NT,
+                                                  alphabet):
+    """The anchor kernel on rows equals its plain version: the map and
+    overlap engines' widths, a second tile of targets, eight seeds a lane
+    and a second query group, NT = 1, dense repeats; one launch each."""
+    from downpore_tpu_torch.ops import cuda_anchors
+    rows = [a.to(cuda_device) for a in seed_rows(
+        np.random.default_rng(NQ * NT), 64, NQ, NT, alphabet)]
+    n0 = cuda_anchors.anchors_topk.launches
+    got = cuda_anchors.anchors_topk(*rows)
+    assert cuda_anchors.anchors_topk.launches == n0 + 1
+    ref = cuda_anchors.anchors_topk_plain(*rows)
+    torch.cuda.synchronize()
+    for name, g, r in zip(cuda_anchors.KEYS, got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r), name
+
+
+@pytest.mark.cuda
+def test_anchors_topk_indexed_on_card_eager_and_replayed(cuda_device):
+    """The indexed entry equals the plain indexed build eagerly and
+    replayed inside a captured graph (other slots than the capture's), one
+    launch each, counted at the replay; ``map_engine._build_anchors`` is
+    that one launch."""
+    from downpore_tpu_torch.ops import cuda_anchors
+    from downpore_tpu_torch.ops import map_engine as tme
+    rng = np.random.default_rng(17)
+    tables = [a.to(cuda_device) for a in seed_rows(rng, 40, 128, 700, 90)]
+    names = ("q_seeds", "q_pos", "t_seeds", "t_pos")
+    slots = [a.to(cuda_device) for a in slot_rows(rng, 500, 40, 40)]
+    ref = cuda_anchors.anchors_topk_plain(*tables, *slots)
+    n0 = cuda_anchors.anchors_topk.launches
+    for got in (cuda_anchors.anchors_topk_indexed(*slots, *tables),
+                tuple(tme._build_anchors(*slots, *tables).values())):
+        for name, g, r in zip(cuda_anchors.KEYS, got, ref):
+            assert torch.equal(g, r), name
+    assert cuda_anchors.anchors_topk.launches == n0 + 2
+    other = [a.to(cuda_device) for a in slot_rows(rng, 500, 40, 40)]
+    out, launched = _replayed(_indexed_block,
+                              dict(zip(("mi", "ci", "live"), other)),
+                              dict(zip(names, tables)))
+    assert launched == [1, 0]
+    for name, g, r in zip(cuda_anchors.KEYS, out, cuda_anchors.
+                          anchors_topk_plain(*tables, *other)):
+        assert torch.equal(g, r), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W, R, with_first", [
+    (512, 64, True), (64, 20, True), (70, 20, True), (300, 40, False),
+    (12288, 300, True), (56, 130, True)],
+    ids=["map", "vec16", "bytes", "vec4", "overlap", "bins"])
+def test_retrieval_count_kernel_matches_plain_on_card(cuda_device, W, R,
+                                                     with_first):
+    """The retrieval-count kernel equals its plain version, eagerly and
+    replayed inside a captured graph on other buckets: the map and overlap
+    widths, 16-, 4- and 1-byte loads, a ragged tail, several column tiles
+    and staging rounds, the level-1 bin width; one launch each."""
+    from downpore_tpu_torch.ops import cuda_counts
+    rng = np.random.default_rng(W + R)
+    mem, b, first = (a.to(cuda_device) for a in count_inputs(
+        rng, 3000, W, 96, R, lo=-2))
+    first = first if with_first else None
+    n0 = cuda_counts.retrieval_count.launches
+    got = cuda_counts.retrieval_count(mem, b, first)
+    assert cuda_counts.retrieval_count.launches == n0 + 1
+    ref = cuda_counts.retrieval_count_plain(mem, b, first)
+    assert len(got) == len(ref) == (2 if with_first else 1)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    _, b2, f2 = (a.to(cuda_device) for a in count_inputs(rng, 3000, W, 96,
+                                                          R))
+    inputs = dict(b=b2) if first is None else dict(b=b2, first=f2)
+    out, launched = _replayed(_count_block, inputs, dict(mem=mem))
+    assert launched == [0, 1]
+    ref = cuda_counts.retrieval_count_plain(mem, b2, f2 if with_first
+                                            else None)
+    for g, r in zip(out, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BB", [3, 7])
+def test_binned_counts_kernel_matches_plain_on_card(cuda_device, BB):
+    """The binned form (level 2) equals its plain version with the first
+    mask and without, at BB < NB and BB = NB."""
+    from downpore_tpu_torch.ops import cuda_counts
+    rng = np.random.default_rng(BB)
+    H0, NB, CB, M = 400, 7, 128, 64
+    mem, b, first = (a.to(cuda_device) for a in count_inputs(
+        rng, H0, NB * CB, M, 48))
+    flat = mem.reshape(H0 * NB, CB)
+    topbin = torch.from_numpy(np.stack([rng.permutation(NB)[:BB]
+                                        for _ in range(M)])).to(cuda_device)
+    for f in (first, None):
+        got = cuda_counts.retrieval_count(flat, b, f, topbin, NB)
+        ref = cuda_counts.retrieval_count_plain(flat, b, f, topbin, NB)
+        assert len(got) == len(ref) == (1 if f is None else 2)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+def test_engine_counts_and_anchors_never_run_plain_on_card(cuda_device,
+                                                           monkeypatch):
+    """On a card the engines' counts and anchor builds are one kernel
+    launch each and never the plain versions (patched here to raise): no
+    retrieval count builds an [m, R, C] block (the peak memory stays below
+    one such block's bytes, at a shape the plain version would chunk)."""
+    from downpore_tpu_torch.ops import cuda_anchors, cuda_counts
+    from downpore_tpu_torch.ops import map_engine as tme
+
+    def plain(*a, **kw):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+    monkeypatch.setattr(cuda_counts, "retrieval_count_plain", plain)
+    monkeypatch.setattr(cuda_anchors, "anchors_topk_plain", plain)
+    monkeypatch.setattr(cuda_anchors, "_topk_rows", plain)
+    rng = np.random.default_rng(5)
+    M, R, C = 2048, 128, 4096
+    mem, rb, first = (a.to(cuda_device) for a in count_inputs(
+        rng, 1 << 14, C, M, R))
+    db = torch.where(first, rb, -1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    n0 = cuda_counts.retrieval_count.launches
+    c, d = tme._count_rows_pair(mem, rb, db)
+    torch.cuda.synchronize()
+    assert cuda_counts.retrieval_count.launches == n0 + 1
+    assert torch.cuda.max_memory_allocated() - base < M * R * C // 4
+    assert torch.equal(tme._count_rows(mem, db), d)
+    tables = [a.to(cuda_device) for a in seed_rows(rng, 64, 64, 320, 30)]
+    slots = [a.to(cuda_device) for a in slot_rows(rng, 9000, 64, 64)]
+    a0 = cuda_anchors.anchors_topk.launches
+    tme._build_anchors(*slots, *tables)
+    assert cuda_anchors.anchors_topk.launches == a0 + 1
 
 
 @pytest.mark.cuda

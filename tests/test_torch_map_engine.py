@@ -16,6 +16,7 @@ from downpore_tpu.mapping import Mapper as JaxMapper
 from downpore_tpu.ops import map_engine as jme
 from downpore_tpu.utils.kmers import kmer_occurrences, score_seed_values
 from downpore_tpu_torch.mapping import Mapper as TorchMapper
+from downpore_tpu_torch.ops import cuda_counts
 from downpore_tpu_torch.ops import map_engine as tme
 
 torch.set_num_threads(2)
@@ -133,9 +134,9 @@ def test_count_rows_bounded_chunks_match_one_block(mappers, monkeypatch):
     rb, db = tme._derive_buckets(torch.from_numpy(packed[0]),
                                  te.usable_dev, te.H, te._hashed)
     whole = tme._count_rows_pair(te.membership, rb, db)
-    monkeypatch.setattr(tme, "_GATHER_ELEMS", 8 * rb.shape[1]
+    monkeypatch.setattr(cuda_counts, "_GATHER_ELEMS", 8 * rb.shape[1]
                         * te.membership.shape[1])
-    assert len(tme._row_chunks(*rb.shape, te.membership.shape[1])) > 1
+    assert len(cuda_counts._row_chunks(*rb.shape, te.membership.shape[1])) > 1
     parts = tme._count_rows_pair(te.membership, rb, db)
     for w, p in zip(whole, parts):
         assert torch.equal(w, p)
