@@ -31,7 +31,10 @@ Phases (any failure ends the run with a non-zero exit):
    on a 64-job subset; ``cuda_anchors.anchors_topk`` (rows and indexed
    slots) and ``cuda_counts.retrieval_count`` (flat with and without the
    ``first`` mask, binned) must equal their plain versions at the paths'
-   widths (``ANCHOR_SHAPES``, ``COUNT_SHAPES``: ``phase_anchor_counts``);
+   widths (``ANCHOR_SHAPES``, ``COUNT_SHAPES``: ``phase_anchor_counts``),
+   on random rows and on hard ones: hash values that collide in the
+   anchor kernel's table, values repeated inside one 32-seed step, int8
+   membership over its whole range;
 3. the map slice at E. coli scale: a synthetic 4.6 Mb genome (k = 11, seed
    rate 40, 10 kb chunks, 1 kb edges), 8192 reads of 6-10 kb at 8%
    substitutions, half reverse-complemented; ``Mapper.map_batch`` on the
@@ -156,6 +159,7 @@ prints no result.  It imports nothing of JAX or of the JAX package itself
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import ctypes
@@ -371,26 +375,118 @@ def phase_kernel(dev):
 
 
 # synthetic shapes of the anchor and count kernels' first check, the
-# paths' widths: (P, NQ, NT) and (M, R, W, H, BB, NB)
-ANCHOR_SHAPES = ((2048, 64, 320), (1024, 128, 4096), (512, 300, 90),
-                 (4096, 16, 120))
+# paths' widths (overlap's NQ = 128, NT = 2048 among them): (P, NQ, NT) and
+# (M, R, W, H, BB, NB)
+ANCHOR_SHAPES = ((2048, 64, 320), (1024, 128, 4096), (2048, 128, 2048),
+                 (512, 300, 90), (4096, 16, 120), (4096, 32, 251))
 COUNT_SHAPES = ((4096, 64, 512, 1 << 17, 0, 0), (2048, 128, 12288, 1 << 14,
                                                   0, 0),
                 (4096, 64, 56, 1 << 17, 0, 0), (4096, 64, 128, 1 << 14, 8,
-                                                 56))
+                                                 56), (512, 300, 13, 4096, 0,
+                                                       0))
+
+
+def table_size(NQ: int) -> int:
+    """Entries of the anchor kernel's hash table at width NQ: the power of
+    two >= 2 NQ, at least 32 (``csrc/anchors_topk.cu`` table_bits)."""
+    return max(32, 1 << (2 * NQ - 1).bit_length())
+
+
+def colliding_values(first_slot, NQ: int, n: int, start: int) -> list:
+    """``n`` seed values >= ``start`` whose first probe in the anchor
+    kernel's table at width NQ is its last entry (``first_slot(v, NQ)``,
+    the kernel's own hash): their probes collide and wrap to entry 0."""
+    top = table_size(NQ) - 1
+    out, v = [], start
+    while len(out) < n:
+        if first_slot(v, NQ) == top:
+            out.append(v)
+        v += 1
+    return out
+
+
+def hard_anchor_rows(rng, P: int, NQ: int, NT: int, first_slot):
+    """Anchor-build rows ``(qs, qpos, ts, tpos)`` (numpy int32, ``[P, NQ]``
+    and ``[P, NT]``, P >= 8) that stress the kernel's table and scan: row
+    0 query values that all probe the table's last entry first (some twice)
+    and a target drawn from them; row 1 one value three times in the query
+    and, in the target, five times in the first 32-seed step and again in
+    later steps; row 2 values whose first and second hits straddle a step
+    (j 31 and 32), a four-step load (127 and 128) and several steps (31
+    and 200); row 3 no live query seed; row 4 no live target seed; row 5
+    one value in every query slot; the rest from an alphabet of NT / 3
+    values with -1 pads at random lengths."""
+    alpha = max(4, NT // 3)
+    qs = rng.integers(0, alpha, (P, NQ)).astype(np.int64)
+    ts = rng.integers(0, alpha, (P, NT)).astype(np.int64)
+    qs[np.arange(NQ)[None, :] >= rng.integers(0, NQ + 1, P)[:, None]] = -1
+    ts[np.arange(NT)[None, :] >= rng.integers(0, NT + 1, P)[:, None]] = -1
+    hot = np.array(colliding_values(first_slot, NQ, min(NQ, 48),
+                                    int(rng.integers(alpha, 1 << 30))))
+    qs[0] = -1
+    qs[0, rng.permutation(NQ)[:len(hot)]] = hot
+    if NQ >= len(hot) + 4:
+        qs[0, np.flatnonzero(qs[0] < 0)[:4]] = hot[:4]
+    ts[0] = np.where(rng.random(NT) < 0.1, -1, rng.choice(hot, NT))
+    big = 1 << 30                       # values no other row draws
+    qs[1] = -1
+    qs[1, :min(3, NQ)] = big
+    ts[1] = np.where(ts[1] == big, -1, ts[1])
+    for j in (3, 5, 9, 17, 30, 40, 100, 129, NT - 1):
+        if 0 <= j < NT:
+            ts[1, j] = big
+    qs[2] = -1
+    ts[2] = -1
+    for i, (v, js) in enumerate(((big + 1, (31, 32)), (big + 2, (127, 128)),
+                                 (big + 3, (31, 200)))):
+        if i < NQ:
+            qs[2, i] = v
+            for j in js:
+                if j < NT:
+                    ts[2, j] = v
+    qs[3] = -1
+    ts[4] = -1
+    qs[5] = big + 4
+    ts[5, rng.random(NT) < 0.3] = big + 4
+    pos = lambda n: np.cumsum(rng.integers(1, 40, (P, n)), axis=1)
+    return [a.astype(np.int32) for a in (qs, pos(NQ), ts, pos(NT))]
+
+
+def hard_count_inputs(rng, H: int, W: int, M: int, R: int, NB: int = 1):
+    """Retrieval-count inputs ``(mem, b, first)`` (numpy) over the whole
+    int8 range: membership values in [-128, 127] with row 0 all 127 and
+    row 1 all -128; ``[M, R]`` buckets below ``H // NB`` with -1 pads at
+    random lengths, row 0 naming bucket 0 in every slot (the largest sum a
+    16-bit lane can reach, R x 255 before the bias comes off), row 1
+    bucket 1 in every slot, row 2 no live slot; ``first`` a random mask
+    over the live slots."""
+    mem = rng.integers(-128, 128, (H, W)).astype(np.int8)
+    mem[0] = 127
+    mem[1] = -128
+    b = rng.integers(0, H // NB, (M, R)).astype(np.int32)
+    b[np.arange(R)[None, :] >= rng.integers(0, R + 1, M)[:, None]] = -1
+    b[0] = 0
+    b[1] = 1
+    b[2] = -1
+    first = (b >= 0) & (rng.random((M, R)) < 0.6)
+    return mem, b, first
 
 
 def phase_anchor_counts(dev):
     """The anchor and retrieval-count kernels against their plain
     versions on synthetic card tensors at the paths' widths, before any
     path runs them: rows from a small alphabet (seeds repeated in a
-    target, all -1 rows), both anchor entries (the indexed one with dead
-    slots), flat counts with and without the ``first`` mask and the
-    binned form.  Returns the max abs error of each."""
+    target, all -1 rows) and the hard rows of ``hard_anchor_rows``
+    (colliding hash values, repeats inside one step), both anchor entries
+    (the indexed one with dead slots); flat counts with and without the
+    ``first`` mask and the binned form, on 0/1 membership and on
+    ``hard_count_inputs``' whole int8 range.  Returns the max abs error of
+    each."""
     from downpore_tpu_torch.ops import cuda_anchors, cuda_counts
     rng = np.random.default_rng(SEED + 90)
     errs = {"anchors_topk": 0, "retrieval_count": 0}
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    first_slot = cuda_anchors._lib().anchors_topk_first_slot
     with uncounted():
         for P, NQ, NT in ANCHOR_SHAPES:
             alpha = max(4, NT // 3)
@@ -398,34 +494,43 @@ def phase_anchor_counts(dev):
             ts = rng.integers(-1, alpha, (P, NT)).astype(np.int32)
             qs[::7] = -1
             pos = lambda n: np.cumsum(rng.integers(1, 40, (P, n)), axis=1)
-            rows = [t(qs), t(pos(NQ).astype(np.int32)), t(ts),
-                    t(pos(NT).astype(np.int32))]
+            random_rows = [t(qs), t(pos(NQ).astype(np.int32)), t(ts),
+                           t(pos(NT).astype(np.int32))]
+            hard_rows = [t(a) for a in hard_anchor_rows(rng, P, NQ, NT,
+                                                        first_slot)]
             live = rng.random(P) < 0.8
             slots = [t(rng.integers(0, P, P)), t(rng.integers(0, P, P)),
                      t(live)]
-            for args, got in (
-                    (rows, cuda_anchors.anchors_topk(*rows)),
-                    (rows + slots,
-                     cuda_anchors.anchors_topk_indexed(*slots, *rows))):
-                err = _max_err(got, cuda_anchors.anchors_topk_plain(*args))
-                errs["anchors_topk"] = max(errs["anchors_topk"], err)
-            log(f"anchors_topk P={P} NQ={NQ} NT={NT}, rows and indexed: "
-                f"max_abs_err={errs['anchors_topk']}")
+            for rows in (random_rows, hard_rows):
+                for args, got in (
+                        (rows, cuda_anchors.anchors_topk(*rows)),
+                        (rows + slots,
+                         cuda_anchors.anchors_topk_indexed(*slots, *rows))):
+                    err = _max_err(got,
+                                   cuda_anchors.anchors_topk_plain(*args))
+                    errs["anchors_topk"] = max(errs["anchors_topk"], err)
+            log(f"anchors_topk P={P} NQ={NQ} NT={NT}, rows and indexed, "
+                f"random and hard rows: max_abs_err={errs['anchors_topk']}")
         for M, R, W, H, BB, NB in COUNT_SHAPES:
-            mem = t((rng.integers(0, 50, (H, W), dtype=np.uint8) == 0)
-                    .astype(np.int8))
-            b = rng.integers(-1, H // max(1, NB), (M, R)).astype(np.int32)
+            NB = max(1, NB)
+            zero_one = (rng.integers(0, 50, (H, W), dtype=np.uint8) == 0)
+            b = rng.integers(-1, H // NB, (M, R)).astype(np.int32)
             b[::9] = -1
-            first = t((b >= 0) & (rng.random((M, R)) < 0.7))
-            b = t(b)
+            cases = [(zero_one.astype(np.int8), b,
+                      (b >= 0) & (rng.random((M, R)) < 0.7)),
+                     hard_count_inputs(rng, H, W, M, R, NB)]
             topbin = None if not BB else t(np.stack(
                 [rng.permutation(NB)[:BB] for _ in range(M)]))
-            for f in (first, None):
-                args = (mem, b, f, topbin, max(1, NB))
-                err = _max_err(cuda_counts.retrieval_count(*args),
-                               cuda_counts.retrieval_count_plain(*args))
-                errs["retrieval_count"] = max(errs["retrieval_count"], err)
-            log(f"retrieval_count M={M} R={R} W={W} H={H} BB={BB}: "
+            for mem, b, first in cases:
+                mem, b, first = t(mem), t(b), t(first)
+                for f in (first, None):
+                    args = (mem, b, f, topbin, NB)
+                    err = _max_err(cuda_counts.retrieval_count(*args),
+                                   cuda_counts.retrieval_count_plain(*args))
+                    errs["retrieval_count"] = max(errs["retrieval_count"],
+                                                  err)
+            log(f"retrieval_count M={M} R={R} W={W} H={H} BB={BB}, 0/1 and "
+                f"whole-range int8 membership: "
                 f"max_abs_err={errs['retrieval_count']}")
     if any(errs.values()):
         raise SystemExit(f"the anchor or count kernel differs from its "
@@ -1390,6 +1495,9 @@ PATH_KERNELS = ("chain_scan", "anchors_topk", "retrieval_count")
 PATH_LAUNCHES = {}    # path -> each path kernel's launches over its run
 RECORDED_ERRS = {}    # kernel -> max abs error of its recorded launches
 KERNEL_ROWS = []      # the anchor and count kernels timed at path shapes
+# a directory where time_path_kernels also saves each launch it times
+# (``--keep-kernel-args``; scripts/ab_paths.py --cases anchor_counts)
+KEEP_KERNEL_ARGS = None
 
 
 def path_modules():
@@ -1435,8 +1543,10 @@ def record_all(calls: list, want=None, kernels=PATH_KERNELS):
             for name, mod, plain in path_modules() if name in kernels]
 
 
-# an anchor-build compare: the equality, the hit count, the select
-ANCHOR_OPS_PER_COMPARE = 3
+# a lookup in the anchor kernel's table: the hash (a multiply and a
+# shift), the key compare and the select of the entry or of the next probe;
+# an insert likewise, with a compare-and-swap in place of the compare
+ANCHOR_OPS_PER_LOOKUP = 4
 
 
 def _anchor_rows(args):
@@ -1453,20 +1563,29 @@ def _rows_read(idx) -> int:
     return int(torch.unique(idx).numel()) if idx.numel() else 0
 
 
-def anchors_bound(args, outs):
-    """The anchor kernel's bound on these inputs: a compare of each live
-    query seed with each live target seed of its pair (``ANCHOR_OPS_PER_
-    COMPARE`` int32 operations); the bytes are the distinct rows the pairs
-    with a live query seed read (seeds and positions of the query, seeds
-    of the target; of the tables, with the indexed entry), the hits'
-    target positions and the slot arrays, each read once, and the outputs
-    written once."""
-    q, t = _anchor_rows(args)
+def anchor_work(q, t) -> dict:
+    """What an anchor launch's rows (``_anchor_rows``) need: a lookup of
+    each live target seed of each pair that has a live query seed, an
+    insert of each live query seed; and, for reference, the compares of
+    every live query seed with every live target seed of its pair (what a
+    brute-force build does, and what the bound counted before)."""
     nq = q.ge(0).sum(dim=1).long()
     nt = t.ge(0).sum(dim=1).long()
-    compares = int((nq * nt).sum())
+    return {"lookups": int(nt[nq.gt(0)].sum()), "inserts": int(nq.sum()),
+            "compares": int((nq * nt).sum())}
+
+
+def anchors_bound(args, outs):
+    """The anchor kernel's bound on these inputs: ``anchor_work``'s lookups
+    and inserts at ``ANCHOR_OPS_PER_LOOKUP`` int32 operations each; the
+    bytes are the distinct rows the pairs with a live query seed read
+    (seeds and positions of the query, seeds of the target; of the tables,
+    with the indexed entry), the hits' target positions and the slot
+    arrays, each read once, and the outputs written once."""
+    q, t = _anchor_rows(args)
+    work = anchor_work(q, t)
     P, A = outs[0].shape
-    busy = nq.gt(0)
+    busy = q.ge(0).any(dim=1)
     if len(args) > 4 and args[4] is not None:
         q_rows = _rows_read(args[4][busy])
         t_rows = _rows_read(args[5][busy])
@@ -1476,7 +1595,8 @@ def anchors_bound(args, outs):
         slots = 0
     nbytes = q_rows * q.shape[1] * 8 + t_rows * t.shape[1] * 4 \
         + int(outs[4].sum()) * 4 + P * A * 17 + P * 4 + slots
-    return bound(compares * ANCHOR_OPS_PER_COMPARE, nbytes)
+    return bound((work["lookups"] + work["inserts"]) * ANCHOR_OPS_PER_LOOKUP,
+                 nbytes)
 
 
 def counts_bound(args):
@@ -1594,9 +1714,16 @@ def time_path_kernels(path: str, calls):
             else counts_bound(args)
         lib = None if anchors else counts_library(args, outs)
         lib_ms = None if lib is None or not lib[1] else lib[0]
+        extra = ""
         if anchors:
             q, t = _anchor_rows(args)
             shape = f"P={outs[0].shape[0]} NQ={q.shape[1]} NT={t.shape[1]}"
+            work = anchor_work(q, t)
+            extra = (f" ({work['lookups']} lookups, {work['inserts']} "
+                     f"inserts; a brute-force build's {work['compares']} "
+                     f"compares, {work['compares'] * 3} operations, would "
+                     f"take {work['compares'] * 3 / INT32_OPS_S * 1e3:.4f} "
+                     f"ms)")
         else:
             shape = (f"M={args[1].shape[0]} R={args[1].shape[1]} "
                      f"W={args[0].shape[1]} H={args[0].shape[0]}"
@@ -1606,12 +1733,26 @@ def time_path_kernels(path: str, calls):
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                    bound_by=b_by)
         KERNEL_ROWS.append(row)
+        if KEEP_KERNEL_ARGS is not None:
+            keep_kernel_args(row, args, outs)
         log(f"  {name} ({kind}) at {path} [{shape}]: kernel {ms:.4f} ms, "
             f"plain torch {plain_ms:.3f} ms, library "
             + (f"{lib_ms:.4f} ms (torch._int_mm)" if lib_ms is not None
                else ("null" if lib is None else
                      "null (its product differs)"))
-            + f"; bound {b_ms:.4f} ms ({b_by}); share {b_ms / ms:.3f}")
+            + f"; bound {b_ms:.4f} ms ({b_by}){extra}; share "
+            f"{b_ms / ms:.3f}")
+
+
+def keep_kernel_args(row, args, outs) -> None:
+    """One timed launch (its ``KERNEL_ROWS`` row, arguments and outputs,
+    on the host) saved as the next numbered file of ``KEEP_KERNEL_ARGS``."""
+    os.makedirs(KEEP_KERNEL_ARGS, exist_ok=True)
+    host = lambda a: a.cpu() if torch.is_tensor(a) else a
+    path = os.path.join(KEEP_KERNEL_ARGS,
+                        f"{len(os.listdir(KEEP_KERNEL_ARGS)):03d}.pt")
+    torch.save({"row": row, "args": [host(a) for a in args],
+                "outs": [host(o) for o in outs]}, path)
 
 
 BEAM_OPS_PER_CELL = 20   # distance, band terms, saturating adds, min, vote
@@ -3226,6 +3367,14 @@ def own_imports() -> set:
 
 
 def main() -> int:
+    global KEEP_KERNEL_ARGS
+    ap = argparse.ArgumentParser(description="The port's smoke run on one "
+                                 "CUDA card.")
+    ap.add_argument("--keep-kernel-args", metavar="DIR",
+                    help="also save the anchor and count launches timed "
+                    "at the path shapes into DIR (scripts/ab_paths.py "
+                    "--cases anchor_counts reads them)")
+    KEEP_KERNEL_ARGS = ap.parse_args().keep_kernel_args
     bad = own_imports() & {"jax", "jaxlib", "downpore_tpu"}
     if bad:
         raise SystemExit(f"chip_smoke imports the JAX side: {sorted(bad)}")

@@ -11,33 +11,45 @@
 // ts[p, j] >= 0).  Outputs are [P, 2 NQ] in (i, slot) row-major order: a hit
 // has qi = i, tj = j, qp = qpos[p, i], tp = tpos[p, j], valid = 1; a miss has
 // qi = -1, tj = qp = tp = 0, valid = 0; overflow[p] is the pair's matches
-// minus its valid anchors.  Two entries share the kernel: plain rows (row p
-// of each input array, any row stride, contiguous within a row) and indexed
-// rows, where the query row is q[mi[p]] and the target row t[ci[p]] of
-// resident tables, and a slot with live[p] == 0 has every query seed -1.
+// minus its valid anchors (a query value that occurs twice counts its
+// matches twice).  Two entries share the kernel: plain rows (row p of each
+// input array, any row stride, contiguous within a row) and indexed rows,
+// where the query row is q[mi[p]] and the target row t[ci[p]] of resident
+// tables, and a slot with live[p] == 0 has every query seed -1.
 //
-// What bounds it: the P NQ NT compares, about 3 int32 operations each
-// (compare, count, select; the update on a hit is rare), over 132 SMs x 64
-// INT32 lanes x 1.98 GHz = 16.73 T/s, against the bytes (each pair's rows
-// read once, 17 bytes an output slot written once) over 3.35 TB/s: at every
-// path shape the operations dominate (overlap: NQ = 128, NT up to 4096).
+// What bounds it: the function needs one lookup per live target seed in a
+// table of the pair's live query seeds and one insert per live query seed
+// (a few int32 operations each, over 132 SMs x 64 INT32 lanes x 1.98 GHz =
+// 16.73 T/s), against the bytes (each pair's rows read once, 17 bytes an
+// output slot written once) over 3.35 TB/s: the bytes lead at every path
+// shape.
 //
-// Design: one warp per pair, four pairs a block.  Lane l owns the query seeds
-// i = g + l + 32 s (s < S, groups g of 32 S) in registers, with a dead seed
-// made -1; the warp stages the target row's seeds in shared memory in tiles
-// of TJ (a dead target seed made -2, so that one compare tests equality and
-// both signs), and every lane scans the tile in ascending j with broadcast
-// 16-byte reads, comparing each value with its S seeds: the first two hits
-// are kept, the rest only counted.  A group whose seeds are all dead (an
-// engine's dead budget slot) is not scanned.  Writes are coalesced: for a
-// fixed s the warp's lanes write 64 consecutive slots.  Nothing of the
-// [P, NQ, NT] equality is ever written.
+// Design: one warp per pair, up to eight pairs a block.  The warp builds an
+// open-addressed hash table of the pair's live query seed values in shared
+// memory (TS = the power of two >= 2 NQ, at least 32 entries; a
+// multiplicative hash, linear probing, keys inserted with atomicCAS so that
+// equal values share one entry): each entry keeps its value's match count
+// n and first two hits j0, j1.  The warp then scans the target row once in
+// ascending j, 32 consecutive seeds a step (four steps' seeds loaded at
+// once): a lane looks its seed up, lanes that hit one entry in a step form a
+// group (__match_any_sync on the entry), and the group's lowest lane, which
+// has its smallest j, alone updates the entry: the first hits go to j0 and
+// j1 in lane order, and n grows by the group's size.  Steps run in order and
+// one lane writes an entry a step, so the order is exact without atomics.
+// Last, each query seed reads its value's entry and writes its two slots
+// (coalesced 8-byte stores).  A pair without a live query seed (an engine's
+// dead budget slot) writes misses without a scan.  Nothing of the
+// [P, NQ, NT] equality is ever formed.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int WARPS = 4;      // pairs a block
-constexpr int TJ = 1024;      // target seeds staged a tile, per warp
+constexpr int MAX_WARPS = 8;           // pairs a block
+constexpr int SMEM_BLOCK = 48 * 1024;  // shared bytes a block, no opt-in
+constexpr int MAX_NQ = 1024;           // a warp's table fits SMEM_BLOCK
+constexpr int STEPS = 4;               // target steps loaded at once
+constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned HASH_MUL = 0x9E3779B1u;  // 2^32 / the golden ratio
 
 struct AnchorParams {
   const int* qs;
@@ -56,16 +68,45 @@ struct AnchorParams {
   int* overflow;
   long long P;
   int NQ, NT;
+  int bits;                   // log2 of the table's entries
+  int warps;                  // pairs a block
 };
 
-template <int S>
-__global__ void __launch_bounds__(WARPS * 32)
+// log2 of a table for NQ query seeds: the power of two >= 2 NQ, >= 32
+__host__ __device__ inline int table_bits(int NQ) {
+  int b = 5;
+  while ((1 << b) < 2 * NQ) ++b;
+  return b;
+}
+
+// the entry a value v >= 0 probes first
+__host__ __device__ inline unsigned first_slot(int v, int bits) {
+  return ((unsigned)v * HASH_MUL) >> (32 - bits);
+}
+
+// the entry holding v, or -1 when v is not a key
+__device__ inline int find(const int* keys, int v, int bits) {
+  const unsigned mask = (1u << bits) - 1u;
+  unsigned h = first_slot(v, bits);
+  while (true) {
+    const int k = keys[h];
+    if (k == v) return (int)h;
+    if (k < 0) return -1;
+    h = (h + 1u) & mask;
+  }
+}
+
+__global__ void __launch_bounds__(MAX_WARPS * 32)
 anchors_topk_kernel(AnchorParams a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  int* tile = reinterpret_cast<int*>(smem) + warp * TJ;
-  const long long p = (long long)blockIdx.x * WARPS + warp;
+  const int TS = 1 << a.bits;
+  int* keys = reinterpret_cast<int*>(smem) + warp * 4 * TS;
+  int* cnt = keys + TS;    // matches of each entry's value
+  int* hit0 = cnt + TS;    // its first hit (valid when cnt >= 1)
+  int* hit1 = hit0 + TS;   // its second hit (valid when cnt >= 2)
+  const long long p = (long long)blockIdx.x * a.warps + warp;
   if (p >= a.P) return;  // warp-uniform
   long long qrow = p, trow = p;
   bool on = true;
@@ -78,6 +119,63 @@ anchors_topk_kernel(AnchorParams a) {
   const int* qpos = a.qpos + qrow * a.qpos_stride;
   const int* ts = a.ts + trow * a.ts_stride;
   const int* tpos = a.tpos + trow * a.tpos_stride;
+
+  // the table of the pair's live query seeds
+  bool any = false;
+  if (on) {  // warp-uniform
+    for (int x = lane; x < TS; x += 32) {
+      keys[x] = -1;
+      cnt[x] = 0;
+    }
+    __syncwarp();
+    for (int i = lane; i < a.NQ; i += 32) {
+      const int v = qs[i];
+      if (v < 0) continue;
+      any = true;
+      unsigned h = first_slot(v, a.bits);
+      while (true) {
+        const int k = atomicCAS(&keys[h], -1, v);
+        if (k < 0 || k == v) break;
+        h = (h + 1u) & (unsigned)(TS - 1);
+      }
+    }
+    any = __any_sync(FULL, any);
+    __syncwarp();
+  }
+
+  // one scan of the target row, ascending j
+  if (any) {  // warp-uniform
+    for (int jb = 0; jb < a.NT; jb += 32 * STEPS) {
+      int v[STEPS];
+#pragma unroll
+      for (int u = 0; u < STEPS; ++u) {
+        const int j = jb + 32 * u + lane;
+        v[u] = j < a.NT ? ts[j] : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < STEPS; ++u) {
+        const int e = v[u] >= 0 ? find(keys, v[u], a.bits) : -1;
+        if (__ballot_sync(FULL, e >= 0) == 0) continue;  // warp-uniform
+        const unsigned grp = __match_any_sync(FULL, e);
+        if (e >= 0 && (grp & ((1u << lane) - 1u)) == 0) {
+          // the group's lowest lane: its smallest j
+          const int j = jb + 32 * u + lane;
+          const int n = cnt[e];
+          if (n == 0) {
+            hit0[e] = j;
+            const unsigned rest = grp & (grp - 1u);
+            if (rest != 0) hit1[e] = jb + 32 * u + __ffs(rest) - 1;
+          } else if (n == 1) {
+            hit1[e] = j;
+          }
+          cnt[e] = n + __popc(grp);
+        }
+        __syncwarp();
+      }
+    }
+  }
+
+  // each query seed's two slots
   const int A = 2 * a.NQ;
   int* qi = a.qi + p * A;
   int* tj = a.tj + p * A;
@@ -85,68 +183,28 @@ anchors_topk_kernel(AnchorParams a) {
   int* tp = a.tp + p * A;
   unsigned char* valid = a.valid + p * A;
   int extra = 0;  // matches beyond the first two, this lane's seeds
-  for (int g = 0; g < a.NQ; g += 32 * S) {
-    int q[S], n[S], j0[S], j1[S];
-    bool any = false;
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const int i = g + lane + 32 * s;
-      const int v = (on && i < a.NQ) ? qs[i] : -1;
-      q[s] = v >= 0 ? v : -1;
-      any |= v >= 0;
-      n[s] = 0;
-      j0[s] = 0;
-      j1[s] = 0;
-    }
-    if (__any_sync(0xffffffffu, any)) {
-      for (int jt = 0; jt < a.NT; jt += TJ) {
-        const int len = min(TJ, a.NT - jt);
-        const int len4 = (len + 3) & ~3;
-        __syncwarp();
-        for (int x = lane; x < len4; x += 32) {
-          const int v = x < len ? ts[jt + x] : -2;
-          tile[x] = v >= 0 ? v : -2;
-        }
-        __syncwarp();
-        const int4* t4 = reinterpret_cast<const int4*>(tile);
-        for (int x = 0; x < len4; x += 4) {
-          const int4 v4 = t4[x >> 2];
-          const int vs[4] = {v4.x, v4.y, v4.z, v4.w};
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int j = jt + x + u;
-#pragma unroll
-            for (int s = 0; s < S; ++s) {
-              if (vs[u] == q[s]) {
-                if (n[s] == 0)
-                  j0[s] = j;
-                else if (n[s] == 1)
-                  j1[s] = j;
-                ++n[s];
-              }
-            }
-          }
-        }
+  for (int i = lane; i < a.NQ; i += 32) {
+    int n = 0, j0 = 0, j1 = 0;
+    if (any) {
+      const int v = qs[i];
+      if (v >= 0) {
+        const int e = find(keys, v, a.bits);
+        n = cnt[e];
+        j0 = n >= 1 ? hit0[e] : 0;
+        j1 = n >= 2 ? hit1[e] : 0;
       }
     }
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const int i = g + lane + 32 * s;
-      if (i < a.NQ) {
-        const bool v0 = n[s] >= 1, v1 = n[s] >= 2;
-        const int qpi = (v0 ? qpos[i] : 0);
-        reinterpret_cast<int2*>(qi)[i] = make_int2(v0 ? i : -1, v1 ? i : -1);
-        reinterpret_cast<int2*>(tj)[i] = make_int2(j0[s], j1[s]);
-        reinterpret_cast<int2*>(qp)[i] = make_int2(qpi, v1 ? qpi : 0);
-        reinterpret_cast<int2*>(tp)[i] =
-            make_int2(v0 ? tpos[j0[s]] : 0, v1 ? tpos[j1[s]] : 0);
-        reinterpret_cast<uchar2*>(valid)[i] =
-            make_uchar2(v0 ? 1 : 0, v1 ? 1 : 0);
-        extra += n[s] - (n[s] < 2 ? n[s] : 2);
-      }
-    }
+    const bool v0 = n >= 1, v1 = n >= 2;
+    const int qpi = v0 ? qpos[i] : 0;
+    reinterpret_cast<int2*>(qi)[i] = make_int2(v0 ? i : -1, v1 ? i : -1);
+    reinterpret_cast<int2*>(tj)[i] = make_int2(j0, j1);
+    reinterpret_cast<int2*>(qp)[i] = make_int2(qpi, v1 ? qpi : 0);
+    reinterpret_cast<int2*>(tp)[i] =
+        make_int2(v0 ? tpos[j0] : 0, v1 ? tpos[j1] : 0);
+    reinterpret_cast<uchar2*>(valid)[i] = make_uchar2(v0 ? 1 : 0, v1 ? 1 : 0);
+    extra += n - (n < 2 ? n : 2);
   }
-  const int total = __reduce_add_sync(0xffffffffu, extra);
+  const int total = __reduce_add_sync(FULL, extra);
   if (lane == 0) a.overflow[p] = total;
 }
 
@@ -158,6 +216,7 @@ extern "C" {
 // cudaGetLastError() after the launch (0: launched).  mi, ci and live are
 // null for the plain-rows entry.  Row strides are in elements; rows must be
 // contiguous.  Outputs are [P, 2 NQ] (int32, valid one byte) and [P].
+// Takes 1 <= NQ <= 1024.
 int anchors_topk_launch(const int* qs, const int* qpos, const int* ts,
                         const int* tpos, long long qs_stride,
                         long long qpos_stride, long long ts_stride,
@@ -166,6 +225,8 @@ int anchors_topk_launch(const int* qs, const int* qpos, const int* ts,
                         int* qi, int* tj, int* qp, int* tp,
                         unsigned char* valid, int* overflow, long long P,
                         int NQ, int NT, void* stream) {
+  if (P <= 0 || NQ <= 0 || NQ > MAX_NQ || NT < 0)
+    return cudaErrorInvalidValue;
   AnchorParams p;
   p.qs = qs;
   p.qpos = qpos;
@@ -187,25 +248,22 @@ int anchors_topk_launch(const int* qs, const int* qpos, const int* ts,
   p.P = P;
   p.NQ = NQ;
   p.NT = NT;
-  if (P <= 0 || NQ <= 0) return cudaErrorInvalidValue;
-  // seeds a lane holds: the fewest groups of 32 S that cover NQ, S <= 8
-  const int need = (NQ + 31) / 32;
-  void (*kern)(AnchorParams) = nullptr;
-  switch (need < 8 ? need : 8) {
-    case 1: kern = anchors_topk_kernel<1>; break;
-    case 2: kern = anchors_topk_kernel<2>; break;
-    case 3: kern = anchors_topk_kernel<3>; break;
-    case 4: kern = anchors_topk_kernel<4>; break;
-    case 5: kern = anchors_topk_kernel<5>; break;
-    case 6: kern = anchors_topk_kernel<6>; break;
-    case 7: kern = anchors_topk_kernel<7>; break;
-    default: kern = anchors_topk_kernel<8>; break;
-  }
-  const unsigned grid = (unsigned)((P + WARPS - 1) / WARPS);
-  const unsigned threads = WARPS * 32;
-  const size_t smem = (size_t)WARPS * TJ * sizeof(int);
-  kern<<<grid, threads, smem, (cudaStream_t)stream>>>(p);
+  p.bits = table_bits(NQ);
+  // a warp's table: key, count and two hits an entry
+  const size_t per_warp = (size_t)4 * sizeof(int) << p.bits;
+  const int fit = (int)(SMEM_BLOCK / per_warp);
+  p.warps = fit < MAX_WARPS ? fit : MAX_WARPS;
+  const unsigned grid = (unsigned)((P + p.warps - 1) / p.warps);
+  const unsigned threads = (unsigned)p.warps * 32;
+  const size_t smem = per_warp * p.warps;
+  anchors_topk_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// The table entry a query value v >= 0 probes first at width NQ (the hash
+// the kernel uses; tests pick colliding values with it).
+int anchors_topk_first_slot(int v, int NQ) {
+  return (int)first_slot(v, table_bits(NQ));
 }
 
 const char* anchors_topk_error_string(int err) {

@@ -24,8 +24,10 @@ the ``[P, NQ, NT]`` equality of ``make_anchors_topk``, the indexed entry in
 steps of ``_anchor_chunk`` pairs to bound it).  A CUDA tensor launches the
 kernel or raises; there is no fallback.  ``anchors_topk.launches`` counts
 the launches; one captured into a CUDA graph counts at each replay
-(``captured.each_run``).  The kernel is bound by its compares (P NQ NT, ~3
-int32 operations each); see the source note in ``anchors_topk.cu``.
+(``captured.each_run``).  The kernel looks each target seed up in a hash
+table of the pair's query seeds in shared memory, so it takes at most
+``MAX_NQ`` query seeds a row; it is bound by the bytes of the rows it reads
+and the outputs it writes; see the source note in ``anchors_topk.cu``.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ import torch
 from . import _build, captured
 
 PER_SEED = 2
+MAX_NQ = 1024     # query seeds a row the kernel's table holds
 KEYS = ("qi", "tj", "qp", "tp", "valid", "overflow")
 
 _count_lock = threading.Lock()
@@ -122,6 +125,8 @@ def _bind(lib):
         fn.restype = ctypes.c_int
         lib.anchors_topk_error_string.argtypes = [ctypes.c_int]
         lib.anchors_topk_error_string.restype = ctypes.c_char_p
+        lib.anchors_topk_first_slot.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.anchors_topk_first_slot.restype = ctypes.c_int
     return lib
 
 
@@ -180,6 +185,9 @@ def _run(args, device):
         return anchors_topk_plain(*args)
     if device.type != "cuda":
         raise ValueError(f"anchors_topk has no kernel for {device.type!r}")
+    if args[0].shape[1] > MAX_NQ:
+        raise ValueError(f"the anchors_topk kernel takes at most {MAX_NQ} "
+                         f"query seeds a row, got {args[0].shape[1]}")
     return _launch(*args)
 
 

@@ -23,8 +23,9 @@ chunks that keep each gathered block under ``_GATHER_ELEMS`` elements, as
 the JAX engine's ``lax.map`` does).  A CUDA tensor launches the kernel or
 raises; there is no fallback.  ``retrieval_count.launches`` counts the
 launches; one captured into a CUDA graph counts at each replay
-(``captured.each_run``).  The kernel is bound by the gathered bytes; see
-the source note in ``retrieval_count.cu``.
+(``captured.each_run``).  The kernel is bound by the bytes of the distinct
+membership rows it reads, its repeats served from L2 (column tiles sized
+from the launch's shape); see the source note in ``retrieval_count.cu``.
 """
 from __future__ import annotations
 

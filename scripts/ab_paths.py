@@ -8,6 +8,8 @@ of two case sets.
         [--rounds 5]
     python3 scripts/ab_paths.py _chipcopy/a _chipcopy/b --cases beam \\
         [--rounds 2] [--jobs PKL] [--clocks]
+    python3 scripts/ab_paths.py _chipcopy/a _chipcopy/b \\
+        --cases anchor_counts [--rounds 2] [--args DIR]
 
 Each turn is one process that imports one tree (its
 ``downpore_tpu_torch``, and for ``paths`` its ``chip_smoke.py``) and runs
@@ -71,6 +73,20 @@ a last process builds tree b's kernel with ``-DBEAM_CLOCKS`` and prints,
 per case, block 0's cycles a step in phase A, at the first barrier, in the
 selection and at the last barrier (warp 0's view; the kernel's
 ``beam_consensus_clocks``).
+
+``--cases anchor_counts``: the anchor-build and retrieval-count kernels
+at the paths' shapes.  First this script's own ``chip_smoke.py`` runs
+whole with ``--keep-kernel-args`` (its log ``smoke.log`` beside the
+turns'): the largest anchor and count launch of each kind in each
+``phase_dispatch`` case is saved with its outputs into a directory of the
+temporary directory (``--args`` reuses an earlier one; the files are
+large, the overlap membership alone 1.6 GB, so they are not written beside
+the logs).  Then each turn builds the tree's two kernels and runs
+each saved launch through the tree's C entry point (``chip_smoke.
+anchors_raw`` / ``counts_raw``, whose ``_call`` both trees share): its
+outputs must equal the saved ones, and its time is that of the kernel
+alone (CUDA events over 10 launches, the smaller of two), printed beside
+the bound the smoke run computed.
 
 The turns go a, b, b, a, a, b, ... (``--rounds`` turns of each tree), so
 neither tree always runs first.  Each turn's log goes to
@@ -551,6 +567,71 @@ def clocks(tree: str) -> int:
     return 0
 
 
+# ---- the anchor_counts case set ----
+
+def kernel_args_dir() -> str:
+    import tempfile
+    return os.path.join(tempfile.gettempdir(), "ab_anchor_counts_args")
+
+
+def capture_kernel_args(dest: str) -> None:
+    """This script's ``chip_smoke.py``, whole, saving the anchor and count
+    launches it times at the path shapes into ``dest``."""
+    shutil.rmtree(dest, ignore_errors=True)
+    log_path = os.path.join(out_dir("anchor_counts"), "smoke.log")
+    with open(log_path, "w") as log:
+        rc = subprocess.run([sys.executable, os.path.join(HERE,
+                                                          "chip_smoke.py"),
+                             "--keep-kernel-args", dest], cwd=HERE,
+                            stdout=log, stderr=subprocess.STDOUT,
+                            timeout=TURN_TIMEOUT).returncode
+    if rc != 0:
+        raise SystemExit(f"chip_smoke.py failed with {rc}; see {log_path}")
+    print(f"AB kept {len(os.listdir(dest))} anchor and count launches",
+          flush=True)
+
+
+def anchor_counts_turn(tree: str, recipe) -> dict:
+    """``tree``'s anchor and count kernels on every kept launch."""
+    import torch
+    dev = torch.device("cuda")
+    result = {}
+    for fname in sorted(os.listdir(ARGS_DIR)):
+        kept = torch.load(os.path.join(ARGS_DIR, fname))
+        row = kept["row"]
+        args = [a.to(dev) if torch.is_tensor(a) else a for a in kept["args"]]
+        raw = (recipe.anchors_raw if row["name"] == "anchors_topk"
+               else recipe.counts_raw)(args)
+        raw()
+        torch.cuda.synchronize()
+        for got, want in zip(raw.outs, kept["outs"]):
+            if not torch.equal(got.cpu(), want):
+                raise SystemExit(f"{row['name']} at {row['path']} differs "
+                                 f"from the kept outputs")
+        ms = min(recipe.cuda_ms(raw, 10), recipe.cuda_ms(raw, 10))
+        key = f"{row['path']} | {row['name']} {row['kind']} [{row['shape']}]"
+        result[key] = {"ms": ms, "bound_ms": row["bound_ms"],
+                       "bound_by": row["bound_by"]}
+        print(f"AB {key}: kernel {ms:.4f} ms; bound {row['bound_ms']:.4f} "
+              f"ms ({row['bound_by']}), share {row['bound_ms'] / ms:.3f}",
+              flush=True)
+        del args, raw, kept
+        torch.cuda.empty_cache()
+    return result
+
+
+def anchor_counts_summary(recs, trees, summary) -> None:
+    for key in recs[0]:
+        if key in ("turn", "tree", "seconds"):
+            continue
+        for label in trees:
+            vals = [r[key]["ms"] for r in recs if r["tree"] == label]
+            summary["range"][f"{key} ms {label}"] = [min(vals), max(vals)]
+        bound_ms = recs[0][key]["bound_ms"]
+        summary["range"][f"{key} bound ms"] = [bound_ms, bound_ms]
+
+
+ARGS_DIR = kernel_args_dir()   # the kept launches (--args)
 OVERLAP_CLI = (("overlap_cli_wall_s", r"^AB overlap CLI: wall ([\d.]+) s",
                 1, 0),)
 CASES = {"paths": (paths_turn, paths_summary),
@@ -558,14 +639,17 @@ CASES = {"paths": (paths_turn, paths_summary),
              metric_ranges, metrics=OVERLAP_TRIM)),
          "overlap_cli": (overlap_cli_turn, functools.partial(
              metric_ranges, metrics=OVERLAP_CLI)),
-         "beam": (beam_turn, beam_summary)}
+         "beam": (beam_turn, beam_summary),
+         "anchor_counts": (anchor_counts_turn, anchor_counts_summary)}
 # the log metrics each case set reads
 CASE_METRICS = {"paths": METRICS, "overlap_trim": OVERLAP_TRIM,
-                "overlap_cli": OVERLAP_CLI, "beam": ()}
+                "overlap_cli": OVERLAP_CLI, "beam": (), "anchor_counts": ()}
 
 
-def turn(tree: str, cases: str) -> int:
+def turn(tree: str, cases: str, args_dir=None) -> int:
     """One turn of ``cases`` on ``tree``."""
+    global ARGS_DIR
+    ARGS_DIR = args_dir or ARGS_DIR
     tree = _enter(tree)
     recipe = _recipe()
     print(f"AB tree {tree}: {recipe.nvidia_smi()}", flush=True)
@@ -579,7 +663,8 @@ def run_turn(tree: str, label: str, i: int, cases: str) -> dict:
     t0 = time.perf_counter()
     with open(log_path, "w") as log:
         rc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                             "--cases", cases, "--turn", tree], stdout=log,
+                             "--cases", cases, "--turn", tree,
+                             "--args", ARGS_DIR], stdout=log,
                             stderr=subprocess.STDOUT,
                             timeout=TURN_TIMEOUT).returncode
     with open(log_path) as f:
@@ -600,6 +685,7 @@ def run_turn(tree: str, label: str, i: int, cases: str) -> dict:
 
 
 def main() -> int:
+    global ARGS_DIR
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="*", help="tree a, tree b")
     ap.add_argument("--cases", choices=sorted(CASES), default="paths")
@@ -608,17 +694,21 @@ def main() -> int:
                     "instead of a capture")
     ap.add_argument("--clocks", action="store_true",
                     help="beam: also print tree b's cycles a step by phase")
+    ap.add_argument("--args", help="anchor_counts: a directory of kept "
+                    "launches of an earlier run, instead of a capture")
     ap.add_argument("--turn", help=argparse.SUPPRESS)
     ap.add_argument("--clocks-turn", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.turn:
-        return turn(args.turn, args.cases)
+        return turn(args.turn, args.cases, args.args)
     if args.clocks_turn:
         return clocks(args.clocks_turn)
     if len(args.trees) != 2:
         ap.error("give two trees")
     if args.cases != "beam" and (args.jobs or args.clocks):
         ap.error("--jobs and --clocks belong to --cases beam")
+    if args.cases != "anchor_counts" and args.args:
+        ap.error("--args belongs to --cases anchor_counts")
     import torch
     if not torch.cuda.is_available():
         print("ab_paths: needs one CUDA card", file=sys.stderr)
@@ -631,6 +721,11 @@ def main() -> int:
             shutil.copyfile(args.jobs, JOBS)
     if args.cases == "overlap_cli":
         _recipe().write_overlap_reads(ov_cli_input())
+    if args.cases == "anchor_counts":
+        if args.args:
+            ARGS_DIR = os.path.abspath(args.args)
+        else:
+            capture_kernel_args(ARGS_DIR)
     trees = {"a": args.trees[0], "b": args.trees[1]}
     order = [("a", "b", "b", "a")[j % 4] for j in range(2 * args.rounds)]
     recs = []

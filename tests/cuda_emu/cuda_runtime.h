@@ -1,6 +1,6 @@
 // A CPU emulation of the CUDA features that csrc/beam_consensus.cu,
 // csrc/anchors_topk.cu and csrc/retrieval_count.cu use, so that their
-// sources compile with a host C++20 compiler and runs in a test
+// sources compile with a host C++20 compiler and run in a test
 // without a card: one std::thread per CUDA thread, the blocks of a launch
 // one after another, each warp collective (shuffles, votes, reductions) a
 // rendezvous of the warp's 32 threads and __syncthreads a barrier of the
@@ -77,6 +77,12 @@ struct alignas(16) int4 {
 struct alignas(2) uchar2 {
   unsigned char x, y;
 };
+struct alignas(8) uint2 {
+  unsigned x, y;
+};
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
 inline int2 make_int2(int x, int y) { return {x, y}; }
 inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
 inline uchar2 make_uchar2(unsigned char x, unsigned char y) { return {x, y}; }
@@ -113,6 +119,12 @@ inline int emu_read_lane(int v, int src) {
 inline int __shfl_sync(unsigned, int v, int src) {
   return emu_read_lane(v, src);
 }
+inline int __shfl_xor_sync(unsigned, int v, int m) {
+  return emu_read_lane(v, emu_lane ^ m);
+}
+inline unsigned __shfl_xor_sync(unsigned, unsigned v, int m) {
+  return (unsigned)emu_read_lane((int)v, emu_lane ^ m);
+}
 inline int __shfl_up_sync(unsigned, int v, int d) {
   const int s = emu_lane - d;
   return emu_read_lane(v, s < 0 ? emu_lane : s);
@@ -146,11 +158,29 @@ inline unsigned __ballot_sync(unsigned, bool p) {
 inline bool __any_sync(unsigned mask, bool p) {
   return __ballot_sync(mask, p) != 0;
 }
+// The lanes whose v equals this lane's.
+inline unsigned __match_any_sync(unsigned, int v) {
+  long long a[32];
+  emu_exchange(v, a);
+  unsigned m = 0;
+  for (int i = 0; i < 32; ++i)
+    if ((int)a[i] == v) m |= 1u << i;
+  return m;
+}
 inline void __syncwarp(unsigned = 0xffffffffu) {
   emu_warp->bar.arrive_and_wait();
 }
 inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
+// Byte n of the result is byte (s >> 4 n) & 7 of the pair (y:x).
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const unsigned long long in = ((unsigned long long)y << 32) | x;
+  unsigned r = 0;
+  for (int n = 0; n < 4; ++n)
+    r |= (unsigned)((in >> (8 * ((s >> (4 * n)) & 7))) & 0xffu) << (8 * n);
+  return r;
+}
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline int atomicAdd(int* p, int v) {
@@ -158,6 +188,11 @@ inline int atomicAdd(int* p, int v) {
 }
 inline int atomicOr(int* p, int v) {
   return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
+}
+inline int atomicCAS(int* p, int cmp, int v) {
+  __atomic_compare_exchange_n(p, &cmp, v, false, __ATOMIC_SEQ_CST,
+                              __ATOMIC_SEQ_CST);
+  return cmp;
 }
 inline unsigned short __ldg(const unsigned short* p) { return *p; }
 inline long long clock64() { return 0; }

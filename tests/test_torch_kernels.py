@@ -796,6 +796,112 @@ def test_count_kernel_source_emulated_binned(emulated_counts):
         assert torch.equal(g, r)
 
 
+def load_chip_smoke():
+    """chip_smoke.py loaded as a module (its input recipes)."""
+    import importlib.util
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(repo, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("NQ, NT", [
+    (64, 640), (32, 251), (128, 2048), (300, 90), (128, 4096), (64, 4077)],
+    ids=["map", "trim", "overlap", "nq300", "nt4096", "nt_ragged"])
+def test_anchor_kernel_source_emulated_hard_rows(emulated_anchors, NQ, NT):
+    """The anchor kernel's source under the emulation equals the plain
+    version on ``chip_smoke.hard_anchor_rows``, on rows and through the
+    indexed entry with dead slots: query values that all probe the hash
+    table's last entry first (picked with the kernel's own hash,
+    ``anchors_topk_first_slot``, so the probes collide and wrap), duplicate
+    query values, a value repeated more than twice inside one 32-seed step
+    and across steps, second hits in a later step than the first, rows
+    without a live query or target seed; NQ = 300 and NT = 4096, 4077."""
+    from downpore_tpu_torch.ops import cuda_anchors
+    smoke = load_chip_smoke()
+    rng = np.random.default_rng(7 * NQ + NT)
+    first_slot = emulated_anchors.anchors_topk_first_slot
+    rows = [torch.from_numpy(a) for a in smoke.hard_anchor_rows(
+        rng, 8, NQ, NT, first_slot)]
+    hot = rows[0][0][rows[0][0] >= 0].tolist()
+    assert len(set(hot)) == min(NQ, 48) and {
+        first_slot(v, NQ) for v in hot} == {smoke.table_size(NQ) - 1}
+    mi, ci, live = slot_rows(rng, 12, 8, 8)
+    for args in (rows, rows + [mi, ci, live]):
+        got = _emulated_anchors(emulated_anchors, *args)
+        ref = cuda_anchors.anchors_topk_plain(*args)
+        for name, g, r in zip(cuda_anchors.KEYS, got, ref):
+            assert torch.equal(g, r), name
+    ref = cuda_anchors.anchors_topk_plain(*rows)
+    assert int(ref[5][1]) > 0 and int(ref[5][0]) > 0
+    assert not bool(ref[4][3].any()) and not bool(ref[4][4].any())
+
+
+def test_anchor_kernel_launcher_refuses_wide_queries(emulated_anchors):
+    """The kernel's table holds at most ``cuda_anchors.MAX_NQ`` query seeds
+    a row: the launcher refuses one more and takes exactly that many."""
+    from downpore_tpu_torch.ops import cuda_anchors
+    rng = np.random.default_rng(5)
+    for NQ, refused in ((cuda_anchors.MAX_NQ + 1, True),
+                        (cuda_anchors.MAX_NQ, False)):
+        args = seed_rows(rng, 2, NQ, 40, 500)
+        outs = cuda_anchors._outputs(2, NQ, torch.device("cpu"))
+        err = cuda_anchors._call(emulated_anchors, outs, *args)
+        assert (err != 0) == refused
+        if not refused:
+            for g, r in zip(outs, cuda_anchors.anchors_topk_plain(*args)):
+                assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("W, R", [(56, 300), (13, 300), (512, 300),
+                                  (4200, 40), (13, 12)],
+                         ids=["bins_vec8", "bytes", "vec16", "vec4",
+                              "unsplit"])
+def test_count_kernel_source_emulated_full_range(emulated_counts, W, R):
+    """The retrieval-count kernel's source under the emulation equals the
+    plain version on ``chip_smoke.hard_count_inputs``: int8 values over
+    [-128, 127], a row that names the all-127 row in each of its R slots
+    and one the all -128 row, a row with no live slot; W = 56 (8-byte
+    loads, 4 teams a row summed by shuffles), 13 (1-byte loads, 8 teams a
+    row), 512 (16-byte loads, a 512-byte tile, one team a row: at R = 300
+    a thread adds 256 slots of 255 into its packed 16-bit lanes before
+    they go into the int32 sums), 4200 (4-byte loads, a ragged tile), 13
+    at R = 12 (too few slots to split); with and without ``first``."""
+    from downpore_tpu_torch.ops import cuda_counts
+    smoke = load_chip_smoke()
+    mem, b, first = (torch.from_numpy(a) for a in smoke.hard_count_inputs(
+        np.random.default_rng(W + R), 40, W, 6, R))
+    for f in (first, None):
+        got = _emulated_counts(emulated_counts, mem, b, f)
+        ref = cuda_counts.retrieval_count_plain(mem, b, f)
+        assert len(got) == len(ref)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+    assert int(ref[0][0].min()) == 127 * R and int(ref[0][2].abs().max()) \
+        == 0
+
+
+def test_count_kernel_source_emulated_binned_full_range(emulated_counts):
+    """The binned form under the emulation equals the plain version on
+    whole-range int8 values with the ``first`` mask and without, at R =
+    270 (two staging rounds) and BB < NB."""
+    from downpore_tpu_torch.ops import cuda_counts
+    smoke = load_chip_smoke()
+    rng = np.random.default_rng(13)
+    H0, NB, CB, M = 20, 6, 24, 7
+    flat, b, first = (torch.from_numpy(a) for a in smoke.hard_count_inputs(
+        rng, H0 * NB, CB, M, 270, NB))
+    topbin = torch.from_numpy(np.stack([rng.permutation(NB)[:4]
+                                        for _ in range(M)]))
+    for f in (first, None):
+        got = _emulated_counts(emulated_counts, flat, b, f, topbin, NB)
+        ref = cuda_counts.retrieval_count_plain(flat, b, f, topbin, NB)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+
+
 def _indexed_block(mi, ci, live, q_seeds, q_pos, t_seeds, t_pos):
     from downpore_tpu_torch.ops import cuda_anchors
     return cuda_anchors.anchors_topk_indexed(mi, ci, live, q_seeds, q_pos,
