@@ -63,7 +63,6 @@ N_READS = 8192
 READ_LEN = 3000
 BATCH = 4096
 SEED = 1234
-TRIM_BREAKDOWN_WINDOWS = 16384
 # bench.py's three map cases: (metric, tag, genome bases, k, reads,
 # anchor in query bases/s).  The headline is E. coli scale: the reference
 # maps a 1.5 GB read set against the 4.6 Mb E. coli genome in 6.7 s on
@@ -76,7 +75,6 @@ MAP_CASES = (("map_bases_per_s", "4.6Mb", 4_600_000, 11, 8192, 1.5e9 / 6.7),
              ("map_chr20_bases_per_s", "64Mb", 64_000_000, 13, 2048,
               2.0e9 / 48.7))
 MAP_READ_LEN = (6000, 10_000)
-MAP_BREAKDOWN_READS = 2048
 OVERLAP_GENOME = 400_000
 OVERLAP_READS = 1024
 OVERLAP_READ_LEN = (6000, 9600)
@@ -250,57 +248,14 @@ def bench_trim(dev, label):
     baseline_reads_s = ref_bytes_s / bytes_per_read
     note(f"trim elapsed={elapsed:.1f}s reads={N_READS} "
          f"mean_read={READ_LEN + 50}b")
-    busy = _trim_stage_breakdown(trimmer, dev)
     emit("trim_reads_per_s", reads_s, "reads/s", reads_s / baseline_reads_s,
-         busy_frac=busy, spread=spread, device=label)
-
-
-def _trim_stage_breakdown(trimmer, dev):
-    """Upload / compute / fetch split for one steady-state batch of
-    TRIM_BREAKDOWN_WINDOWS interior windows through the middle pass's
-    detection scan, and the pipelined per-batch wall (several batches in
-    flight, as the trimmer runs them).  Returns the busy fraction."""
-    from .core import Sequence
-    rng = np.random.default_rng(SEED + 2)
-    eng = trimmer._engine()
-    W = trimmer.WINDOW - trimmer.k + 1
-    NW = TRIM_BREAKDOWN_WINDOWS
-    wins = [Sequence.from_string(rand_seq(rng, 256), id=i)
-            for i in range(NW)]
-    min_m = np.full(len(trimmer.front_adapters), 6, np.int64)
-
-    def disp():
-        return eng.window_verdict_dispatch(wins, min_m, min_m, 85, W)
-
-    eng.window_verdict_collect(disp())          # warm
-    t0 = time.time()
-    eng.upload(wins, W)
-    sync(dev)
-    t1 = time.time()
-    futs = disp()
-    sync(dev)
-    t2 = time.time()
-    eng.window_verdict_collect(futs)
-    t3 = time.time()
-    up, comp, fetch = t1 - t0, t2 - t1, t3 - t2
-    total = max(1e-9, t3 - t0)
-    t4 = time.time()
-    fss = [disp() for _ in range(3)]
-    for fs in fss:
-        eng.window_verdict_collect(fs)
-    pipe = (time.time() - t4) / 3
-    busy = min(1.0, comp / max(pipe, 1e-9))
-    note(f"trim stage breakdown ({NW} windows): upload={up:.2f}s "
-         f"compute={comp:.2f}s fetch={fetch:.2f}s "
-         f"fetch_frac={fetch / total:.2f} pipelined={pipe:.2f}s/batch "
-         f"busy_frac={busy:.2f}")
-    return busy
+         spread=spread, device=label)
 
 
 # ---------------------------------------------------------------------
 def _map_case(GEN, k, n_reads, tag, dev, err=0.08):
     """Build a GEN-base synthetic reference, map n_reads ONT-like reads,
-    return (bases/s, mapper, reads, extras).  Best of two timed runs
+    return (bases/s, extras).  Best of two timed runs
     after a full warm-up (the reference numbers are steady-state too)."""
     from .core import Sequence
     from .mapping import Mapper
@@ -338,41 +293,14 @@ def _map_case(GEN, k, n_reads, tag, dev, err=0.08):
     note(f"map[{tag}] elapsed={elapsed:.1f}s reads={n_reads} "
          f"mapped={n_mapped} index_build={t_index:.1f}s "
          f"chunks={eng.C} binned={eng._binned}")
-    return bases_s, mapper, reads, dict(spread=spread)
-
-
-def _map_breakdown(mapper, reads, dev):
-    """Pack / compute / fetch split for one steady-state dispatch of the
-    two 1 kb end windows of the first MAP_BREAKDOWN_READS reads."""
-    eng = mapper.engine
-    windows = []
-    for r in reads[:MAP_BREAKDOWN_READS]:
-        windows.append(r.subsequence(0, 1000))
-        windows.append(r.subsequence(len(r) - 1000, len(r)))
-    t0 = time.time()
-    packed = eng.pack_query_windows(windows)
-    base_min = np.maximum(5, packed[6] // 5).astype(np.int32)
-    t1 = time.time()
-    futs = eng.dispatch_packed(packed, base_min)
-    sync(dev)
-    t2 = time.time()
-    eng.collect_arrays_many([futs])
-    t3 = time.time()
-    pack, comp, fetch = t1 - t0, t2 - t1, t3 - t2
-    total = max(1e-9, t3 - t0)
-    note(f"map stage breakdown ({len(windows)} windows): pack={pack:.2f}s "
-         f"compute={comp:.2f}s fetch={fetch:.2f}s "
-         f"fetch_frac={fetch / total:.2f} busy_frac={comp / total:.2f}")
+    return bases_s, dict(spread=spread)
 
 
 def bench_map(dev, label):
-    """MAP_CASES in order; the first (the headline) also gets the stage
-    breakdown, the others are secondary lines."""
+    """MAP_CASES in order; the first is the headline, the others are
+    secondary lines."""
     for i, (metric, tag, gen, k, n_reads, anchor) in enumerate(MAP_CASES):
-        bases_s, mapper, reads, meta = _map_case(gen, k, n_reads, tag, dev)
-        if i == 0:
-            _map_breakdown(mapper, reads, dev)
-        del mapper, reads
+        bases_s, meta = _map_case(gen, k, n_reads, tag, dev)
         emit(metric, bases_s, "bases/s", bases_s / anchor,
              scale=f"{tag} genome" + (" (secondary)" if i else ""),
              device=label, **meta)

@@ -1,8 +1,11 @@
 """The map command (ref: commands/map.go:17-116) on the torch engine.
 
-Same flags, defaults and help text as ``downpore_tpu``'s map command;
-``-data_parallel true`` and ``-seed_shards N`` build a device grid
-(``parallel.make_mesh``) where the JAX command builds its mesh."""
+Same flags, defaults and help text as ``downpore_tpu``'s map command,
+plus the trim command's ``-profile DIR``: a ``torch.profiler`` Chrome
+trace, ``DIR/trace.json``, with the program's spans in it
+(``utils.metrics``).  ``-data_parallel true`` and ``-seed_shards N``
+build a device grid (``parallel.make_mesh``) where the JAX command builds
+its mesh."""
 from __future__ import annotations
 
 import sys
@@ -17,9 +20,9 @@ class MapCommand(Command):
         super().__init__(
             ["input", "reference", "circular", "k", "query_size",
              "min_length", "chunk_size", "seed_rate", "num_workers",
-             "data_parallel", "seed_shards"],
+             "data_parallel", "seed_shards", "profile"],
             ["", "", "true", "11", "1000", "500", "10000", "40", "4",
-             "false", "1"],
+             "false", "1", ""],
             ["Fasta/fastq input file",
              "A fasta file containing a reference sequence to align against",
              "Whether the reference genome is circular",
@@ -33,12 +36,15 @@ class MapCommand(Command):
              "(jax.sharding data mesh; the reference index replicates)",
              "Shard the seed index over this many devices (with "
              "-data_parallel: a data x seed mesh; retrieval counts merge "
-             "with a psum over the seed axis)"])
+             "with a psum over the seed axis)",
+             "Directory to write a JAX profiler trace to"])
 
     def run(self, args):
         from ..io import SequenceSet
         from ..mapping import Mapper
-        from ..utils import kmer_occurrences, score_seed_values
+        from ..utils import (kmer_occurrences, score_seed_values,
+                             start_profiler, stop_profiler)
+        from ..utils.metrics import span
 
         k = parse_int(args["k"])
         ref_set = SequenceSet(args["reference"])
@@ -64,21 +70,23 @@ class MapCommand(Command):
 
         def flush(batch):
             nonlocal mapped, multiple, unmapped, total
-            lines = []
-            for maps in mapper.map_batch(batch):
-                if maps:
-                    for m in maps:
-                        lines.append(mapper.as_string(m))
-                    if len(maps) == 1:
-                        mapped += 1
+            results = mapper.map_batch(batch)
+            with span("map.write"):
+                lines = []
+                for maps in results:
+                    if maps:
+                        for m in maps:
+                            lines.append(mapper.as_string(m))
+                        if len(maps) == 1:
+                            mapped += 1
+                        else:
+                            multiple += 1
+                        total += len(maps)
                     else:
-                        multiple += 1
-                    total += len(maps)
-                else:
-                    unmapped += 1
-            if lines:                      # one buffered write per batch
-                lines.append("")
-                sys.stdout.write("\n".join(lines))
+                        unmapped += 1
+                if lines:                  # one buffered write per batch
+                    lines.append("")
+                    sys.stdout.write("\n".join(lines))
 
         # parse-ahead: the next batch parses on a worker thread while the
         # current batch maps
@@ -93,14 +101,21 @@ class MapCommand(Command):
                     break
             return b
 
-        with ThreadPoolExecutor(max_workers=1) as ex:
-            fut = ex.submit(take_batch)
-            while True:
-                batch = fut.result()
-                if not batch:
-                    break
+        if args.get("profile"):
+            start_profiler(args["profile"], mapper.device)
+        try:
+            with ThreadPoolExecutor(max_workers=1) as ex:
                 fut = ex.submit(take_batch)
-                flush(batch)
+                while True:
+                    with span("map.parse_wait"):
+                        batch = fut.result()
+                    if not batch:
+                        break
+                    fut = ex.submit(take_batch)
+                    flush(batch)
+        finally:
+            if args.get("profile"):
+                stop_profiler()
         print("Uniquely mapped:", mapped, file=sys.stderr)
         print("Multiple mappings:", multiple, file=sys.stderr)
         print("total:", total, file=sys.stderr)

@@ -28,6 +28,7 @@ from ..core.sequence import Sequence
 from ..ops.chain import unpack_summary
 from ..ops.map_engine import MapEngine
 from ..seeds import SeedIndex
+from ..utils.metrics import span, traced
 
 
 class Mapping:
@@ -118,6 +119,7 @@ class Mapper:
                 f"{m.start}\t{m.end}\t{m.ids}\t{mapped_len}\t255")
 
     # -- batched performMapping ----------------------------------------
+    @traced("map.stage")
     def perform_mapping_batch(self, queries: List[Sequence]) -> List[List[Mapping]]:
         """The reference's performMapping (mapping.go:489-611) over a batch
         of query windows: retrieval matmul, popcount gate, chain DP,
@@ -148,6 +150,7 @@ class Mapper:
             self._walk_candidates(sub, num_seeds, coll, results, lo)
         return results
 
+    @traced("map.walk")
     def _walk_candidates(self, queries, num_seeds, coll, results,
                          base: int):
         """Adaptive-threshold candidate walk for one packed chunk
@@ -366,60 +369,74 @@ class Mapper:
         identical to the unsharded run.  A grid engine already splits each
         batch over its devices (and, across processes, collects in
         lockstep), so it maps on one thread."""
-        if len(reads) >= self._SHARD_MIN and self.mesh is None:
-            from concurrent.futures import ThreadPoolExecutor
-            mid = (len(reads) + 1) // 2
-            with ThreadPoolExecutor(max_workers=1) as tp:
-                fut = tp.submit(self._map_batch_one, reads[mid:])
-                out_a = self._map_batch_one(reads[:mid])
-                return out_a + fut.result()
-        return self._map_batch_one(reads)
+        with span("map.batch", counts=True) as batch:
+            if len(reads) >= self._SHARD_MIN and self.mesh is None:
+                from concurrent.futures import ThreadPoolExecutor
+                mid = (len(reads) + 1) // 2
+                with ThreadPoolExecutor(max_workers=1) as tp:
+                    fut = tp.submit(self._map_batch_one, reads[mid:], batch)
+                    out_a = self._map_batch_one(reads[:mid])
+                    with span("map.join", cpu=True):
+                        out_b = fut.result()
+                    return out_a + out_b
+            return self._map_batch_one(reads)
 
-    def _map_batch_one(self, reads: List[Sequence]) -> List[List[Mapping]]:
+    def _map_batch_one(self, reads: List[Sequence],
+                       parent=None) -> List[List[Mapping]]:
         """Map a batch of reads, batching every device stage across reads
-        (ref flow: mapping/mapping.go:430-487)."""
+        (ref flow: mapping/mapping.go:430-487).  ``parent`` is the batch's
+        span where this runs on a shard thread of its own."""
+        with span("map.shard", parent=parent, cpu=True):
+            return self._map_phases(reads)
+
+    def _map_phases(self, reads: List[Sequence]) -> List[List[Mapping]]:
         results: List[Optional[List[Mapping]]] = [None] * len(reads)
         es = self.edge_size
 
         short_idx = [i for i, r in enumerate(reads) if len(r) <= 2 * es]
         long_idx = [i for i, r in enumerate(reads) if len(r) > 2 * es]
         # short reads: one query each
-        short_maps = self.perform_mapping_batch([reads[i] for i in short_idx])
-        for i, ms in zip(short_idx, short_maps):
-            ms = _remove_dominated(ms, ms, len(reads[i]))
-            for m in ms:
-                m.query = reads[i]
-            results[i] = ms
+        with span("map.short"):
+            short_maps = self.perform_mapping_batch(
+                [reads[i] for i in short_idx])
+            for i, ms in zip(short_idx, short_maps):
+                ms = _remove_dominated(ms, ms, len(reads[i]))
+                for m in ms:
+                    m.query = reads[i]
+                results[i] = ms
 
         # long reads stage 1: both ends
-        subqs = []
-        for i in long_idx:
-            r = reads[i]
-            subqs.append(r.subsequence(0, es))
-            subqs.append(r.subsequence(len(r) - es, len(r)))
-        end_maps = self.perform_mapping_batch(subqs)
-        states = {}
-        for idx, i in enumerate(long_idx):
-            r = reads[i]
-            open_a = _remove_dominated(end_maps[2 * idx], end_maps[2 * idx],
-                                       len(r))
-            open_b = _remove_dominated(end_maps[2 * idx + 1],
-                                       end_maps[2 * idx + 1], len(r))
-            for m in open_a + open_b:
-                m.query = r
-            open_a, open_b, matched = self.match_pairs(open_a, open_b)
-            if matched:
-                results[i] = matched
-            elif len(r) < 3 * es:
-                results[i] = open_a + open_b
-            else:
-                states[i] = (open_a, open_b)
+        with span("map.ends"):
+            subqs = []
+            for i in long_idx:
+                r = reads[i]
+                subqs.append(r.subsequence(0, es))
+                subqs.append(r.subsequence(len(r) - es, len(r)))
+            end_maps = self.perform_mapping_batch(subqs)
+            states = {}
+            for idx, i in enumerate(long_idx):
+                r = reads[i]
+                open_a = _remove_dominated(end_maps[2 * idx],
+                                           end_maps[2 * idx], len(r))
+                open_b = _remove_dominated(end_maps[2 * idx + 1],
+                                           end_maps[2 * idx + 1], len(r))
+                for m in open_a + open_b:
+                    m.query = r
+                open_a, open_b, matched = self.match_pairs(open_a, open_b)
+                if matched:
+                    results[i] = matched
+                elif len(r) < 3 * es:
+                    results[i] = open_a + open_b
+                else:
+                    states[i] = (open_a, open_b)
 
         # stage 2: mapNext (two rounds of stepping inward), batched
-        self._map_next_stage(reads, states, results)
+        with span("map.next"):
+            self._map_next_stage(reads, states, results)
 
         # stage 3: chimera split search for remaining reads
-        self._split_stage(reads, states, results)
+        with span("map.split"):
+            self._split_stage(reads, states, results)
         return [r if r is not None else [] for r in results]
 
     def _map_next_stage(self, reads, states, results):

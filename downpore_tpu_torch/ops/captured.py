@@ -68,7 +68,10 @@ f. Launch counts: a kernel wrapper counts a launch through ``each_run``,
    contains, and the capture adds none.
 
 ``GRAPHS`` is the process's cache (a graph is a property of the process's
-device context, as ``jit``'s cache is of the process).
+device context, as ``jit``'s cache is of the process).  Its ``captures``
+counts the captures (the counter ``graph.captures``); a replay (copy-in,
+replay, clone-out) is the span ``graph.replay``, a capture (warm-up
+included) ``graph.capture``.
 """
 from __future__ import annotations
 
@@ -79,6 +82,9 @@ import weakref
 
 import numpy as np
 import torch
+
+from ..utils import metrics
+from ..utils.metrics import span
 
 
 def row_bucket(n: int) -> int:
@@ -159,7 +165,8 @@ class _Table:
 class GraphCache:
     """Captured dispatch blocks by key (see the module docstring).
     ``entries`` maps each key to its ``_Entry``; ``table_copies`` counts
-    the copies of resident tables into the cache's buffers."""
+    the copies of resident tables into the cache's buffers and
+    ``captures`` the graphs captured."""
 
     def __init__(self):
         self._lock = threading.RLock()
@@ -169,6 +176,7 @@ class GraphCache:
         self._side = {}
         self._last_stream = {}
         self.table_copies = 0
+        self.captures = 0
 
     # -- buffers --------------------------------------------------------
     def _table(self, dev: str, name: str, t: torch.Tensor) -> torch.Tensor:
@@ -219,15 +227,17 @@ class GraphCache:
                     for n, t in tables.items()}
             e = self.entries.get(key)
             if e is None:
-                return self._capture(key, fn, inputs, tabs, statics, dev,
-                                     cur)
-            for n, t in inputs.items():
-                e.inputs[n].copy_(t, non_blocking=True)
-            e.graph.replay()
-            out = tuple(o.clone() for o in e.outputs)
-            for h in e.hooks:
-                h()
-            e.replays += 1
+                with span("graph.capture"):
+                    return self._capture(key, fn, inputs, tabs, statics,
+                                         dev, cur)
+            with span("graph.replay"):
+                for n, t in inputs.items():
+                    e.inputs[n].copy_(t, non_blocking=True)
+                e.graph.replay()
+                out = tuple(o.clone() for o in e.outputs)
+                for h in e.hooks:
+                    h()
+                e.replays += 1
             return out[0] if e.single else out
 
     def _capture(self, key, fn, inputs, tabs, statics, dev, cur):
@@ -264,6 +274,7 @@ class GraphCache:
         e.graph, e.hooks = g, hooks
         e.outputs = (out,) if e.single else tuple(out)
         self.entries[key] = e
+        self.captures += 1
         cur.wait_stream(side)
         for t in warm:
             t.record_stream(cur)
@@ -306,6 +317,7 @@ def graph_nodes(g: torch.cuda.CUDAGraph) -> int:
 
 
 GRAPHS = GraphCache()
+metrics.counter("graph.captures", lambda: GRAPHS.captures)
 
 
 def run(fn, inputs: dict, tables: dict = None, **statics):

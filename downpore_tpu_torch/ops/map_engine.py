@@ -86,6 +86,7 @@ import torch
 
 from .. import resolve_device
 from ..parallel.mesh import DeviceGrid
+from ..utils.metrics import span, traced
 from . import captured
 from . import match as match_ops
 from . import cuda_anchors, cuda_counts
@@ -849,6 +850,7 @@ class MapEngine:
                                    self._NQS, kt, km, us, self.num_seeds,
                                    self.H)
 
+    @traced("map.pack")
     def pack_query_windows(self, windows: List) -> tuple:
         """Seed features of plain sequence windows, forward and reverse
         complement rows interleaved ([2i] = fw of window i, [2i+1] = rc).
@@ -941,6 +943,7 @@ class MapEngine:
         return q_seeds, q_pos, q_rb, q_db, num_sets, q_len, num_seeds
 
     # -- dispatch / collect ---------------------------------------------
+    @traced("map.dispatch")
     def dispatch_packed(self, packed: tuple, base_min: np.ndarray,
                         pair_budget: int = 0, top_k: int = 4,
                         min_sets: int = 5):
@@ -1079,13 +1082,15 @@ class MapEngine:
             BB = _bb_final(n_bin, BB, self._NB) if self._binned else 0
             while n_ok > budget:
                 budget *= 4
-            cnt, head, packed = p.rerun(budget, BB)
+            with span("map.rerun"):
+                cnt, head, packed = p.rerun(budget, BB)
             n_ok = int(cnt[0])
         if self._binned:
             self.bins[(n_bin, BB)] += 1
         live = head[:, 0] >= 0
         return head[live], packed[live].astype(np.int32), n_ok
 
+    @traced("map.collect")
     def collect_arrays_many(self, futs_list):
         """Host arrays of several dispatches: per dispatch ``(head [N, 3]
         int32 (query row, chunk, distinct count), summary [N, W] int32)``

@@ -20,33 +20,60 @@ bringing the wait back:
 ``Pending`` is one block of a dispatch in flight, enqueued on its device
 under ``on_device``: its device result, the host copy started behind it,
 and what a re-run at collect needs.
+
+Counters (always on, named for ``utils.metrics.counters``):
+``upload.bytes`` counts the bytes ``upload`` puts on a device and
+``HostCopy.bytes`` those a ``HostCopy`` brings to the host (on the CPU the
+same sizes, though nothing crosses a bus).  Spans: ``map.upload`` around
+an upload, ``map.wait`` around a ``HostCopy``'s wait for its event.
 """
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import List, Sequence
 
 import numpy as np
 import torch
 
+from ..utils import metrics
+from ..utils.metrics import span
+
+_count_lock = threading.Lock()
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
 
 def upload(a, device: torch.device, keep: list) -> torch.Tensor:
     """``a`` (a numpy array or a CPU tensor) as a new tensor on
     ``device``, copied without waiting for the device's queue."""
-    t = a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a))
-    if device.type != "cuda":
-        return t.to(device, copy=True)
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t)
-    keep.append(host)
-    return host.to(device, non_blocking=True)
+    with span("map.upload"):
+        t = a if torch.is_tensor(a) else torch.from_numpy(
+            np.ascontiguousarray(a))
+        with _count_lock:
+            upload.bytes += _nbytes(t)
+        if device.type != "cuda":
+            return t.to(device, copy=True)
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t)
+        keep.append(host)
+        return host.to(device, non_blocking=True)
+
+
+upload.bytes = 0
 
 
 class HostCopy:
     """Device tensors of one device, copied to the host behind the work
     that computes them."""
 
+    bytes = 0
+
     def __init__(self, tensors: Sequence[torch.Tensor]):
+        with _count_lock:
+            HostCopy.bytes += sum(_nbytes(t) for t in tensors)
         self.event = None
         dev = tensors[0].device
         if dev.type != "cuda":
@@ -63,8 +90,13 @@ class HostCopy:
 
     def wait(self) -> List[np.ndarray]:
         if self.event is not None:
-            self.event.synchronize()
+            with span("map.wait"):
+                self.event.synchronize()
         return [h.numpy() for h in self.host]
+
+
+metrics.counter("upload.bytes", lambda: upload.bytes)
+metrics.counter("host_copy.bytes", lambda: HostCopy.bytes)
 
 
 def on_device(dev: torch.device):

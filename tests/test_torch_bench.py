@@ -34,11 +34,11 @@ METRICS = ["trim_reads_per_s", "map_bases_per_s", "map_1mb_bases_per_s",
            "map_gb_mb_per_s", "overlap_gb_mb_per_s"]
 
 TOY = dict(
-    N_READS=48, READ_LEN=500, BATCH=48, TRIM_BREAKDOWN_WINDOWS=128,
+    N_READS=48, READ_LEN=500, BATCH=48,
     MAP_CASES=tuple(c[:2] + toy + c[5:] for c, toy in zip(
         bench.MAP_CASES, [(50_000, 11, 12), (30_000, 11, 8),
                           (60_000, 13, 8)])),
-    MAP_READ_LEN=(2000, 3000), MAP_BREAKDOWN_READS=6,
+    MAP_READ_LEN=(2000, 3000),
     OVERLAP_GENOME=25_000, OVERLAP_READS=30, OVERLAP_READ_LEN=(2000, 3000),
     CONSENSUS_JOBS=6, CONSENSUS_MEMBERS=4, CONSENSUS_CORE=50,
     CONSENSUS_ORACLE_JOBS=1, BAND_ROWS=64, BAND_REPS=10,
@@ -111,9 +111,7 @@ def test_bench_every_section_without_jax(tmp_path):
     assert [json.loads(ln) for ln in running.read_text().splitlines()] \
         == rows
     err = proc.stderr
-    for line in ("# device=cpu", "# trim stage breakdown (128 windows): "
-                 "upload=", "# map stage breakdown (12 windows): pack=",
-                 "# overlap round kernel: dev+dispatch=",
+    for line in ("# device=cpu", "# overlap round kernel: dev+dispatch=",
                  f"Uniquely mapped: {unique}", "# suite total"):
         assert line in err, line
     assert "FAILED" not in err
