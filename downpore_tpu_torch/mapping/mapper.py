@@ -19,6 +19,7 @@ shards and, with a seed axis, shards the index's hash-bucket rows.
 """
 from __future__ import annotations
 
+import threading
 from typing import List, Optional
 
 import numpy as np
@@ -26,9 +27,30 @@ import numpy as np
 from .. import native, resolve_device
 from ..core.sequence import Sequence
 from ..ops.chain import unpack_summary
-from ..ops.map_engine import MapEngine
+from ..ops.map_engine import MapEngine, WindowRows
 from ..seeds import SeedIndex
-from ..utils.metrics import span, traced
+from ..utils.metrics import counter, span, traced
+
+
+class _EndsCounts:
+    """Long reads of the native ends route: paired or closed there
+    (``map.ends.native_reads``), or handed on open to the next phase
+    (``map.ends.open_reads``)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.native_reads = 0
+        self.open_reads = 0
+
+    def count(self, closed: int, still_open: int) -> None:
+        with self.lock:
+            self.native_reads += closed
+            self.open_reads += still_open
+
+
+_ENDS = _EndsCounts()
+counter("map.ends.native_reads", lambda: _ENDS.native_reads)
+counter("map.ends.open_reads", lambda: _ENDS.open_reads)
 
 
 class Mapping:
@@ -130,14 +152,35 @@ class Mapper:
         windows + RC twins instead of per-query ``new_seed_sequence``
         loops (which were the single largest map cost in round-1
         profiles)."""
-        if not queries:
+        results: List[List[Mapping]] = [[] for _ in queries]
+        for lo, sub, num_seeds, coll in self._chunks(queries):
+            self._walk_candidates(sub, num_seeds, coll, results, lo)
+        return results
+
+    @traced("map.stage")
+    def _map_window_rows(self, rows: WindowRows) -> tuple:
+        """``perform_mapping_batch`` over ``WindowRows``, with the native
+        library: every window's accepted mappings as arrays ``(window,
+        start, end, q_offset, q_inset, rc, ids)``, window-major in the
+        walk's order, not yet deduplicated."""
+        parts = [self._walk_candidates(sub, num_seeds, coll, None, lo)
+                 for lo, sub, num_seeds, coll in self._chunks(rows)]
+        parts = [p for p in parts if p is not None]
+        if not parts:
+            return tuple(np.zeros(0, t) for t in
+                         (np.int64,) * 5 + (bool, np.int64))
+        return tuple(np.concatenate(c) for c in zip(*parts))
+
+    def _chunks(self, queries):
+        """Pack, dispatch and collect ``queries`` in chunks: ``(lo, sub,
+        num_seeds, collected)`` for each."""
+        if not len(queries):
             return []
         # chunked dispatch-ahead pipeline: pack chunk i+1 on host while
         # the device crunches chunk i (pack and compute are each ~half
         # the stage, so the overlap nearly halves wall-clock)
         CHUNK = 4096
         inflight = []
-        results: List[List[Mapping]] = [[] for _ in queries]
         for lo in range(0, len(queries), CHUNK):
             sub = queries[lo : lo + CHUNK]
             packed = self.engine.pack_query_windows(sub)
@@ -146,16 +189,17 @@ class Mapper:
             futs = self.engine.dispatch_packed(packed, base_min)
             inflight.append((lo, sub, num_seeds, futs))
         colls = self.engine.collect_arrays_many([f for *_, f in inflight])
-        for (lo, sub, num_seeds, _), coll in zip(inflight, colls):
-            self._walk_candidates(sub, num_seeds, coll, results, lo)
-        return results
+        return [(lo, sub, num_seeds, coll)
+                for (lo, sub, num_seeds, _), coll in zip(inflight, colls)]
 
     @traced("map.walk")
     def _walk_candidates(self, queries, num_seeds, coll, results,
                          base: int):
         """Adaptive-threshold candidate walk for one packed chunk
         (ref: mapping.go:494-589).  ``results[base + qi]`` receives each
-        query's mappings.  The native walk runs when the host library
+        query's mappings; with ``results`` None (``WindowRows``, native
+        walk) the accepted mappings are returned as arrays instead, their
+        window ``base + qi``.  The native walk runs when the host library
         loaded; its pure-Python twin otherwise.
 
         All per-(pair, chain) geometry — reference start/end, query
@@ -184,9 +228,17 @@ class Mapper:
         nq = len(queries)
         qi_row = mi >> 1
         is_rc = (mi & 1).astype(bool)
-        qlen = np.fromiter((len(q) for q in queries), np.int64, nq)[qi_row]
-        qoff = np.fromiter((q.offset for q in queries), np.int64, nq)[qi_row]
-        qins = np.fromiter((q.inset for q in queries), np.int64, nq)[qi_row]
+        if isinstance(queries, WindowRows):
+            qlen = queries.lens[qi_row]
+            qoff = queries.offset[qi_row]
+            qins = queries.inset[qi_row]
+        else:
+            qlen = np.fromiter((len(q) for q in queries), np.int64,
+                               nq)[qi_row]
+            qoff = np.fromiter((q.offset for q in queries), np.int64,
+                               nq)[qi_row]
+            qins = np.fromiter((q.inset for q in queries), np.int64,
+                               nq)[qi_row]
         # RC rows swap offset/inset (Sequence.reverse_complement semantics)
         moff = np.where(is_rc, qins, qoff)
         mins_ = np.where(is_rc, qoff, qins)
@@ -209,40 +261,37 @@ class Mapper:
             bounds, num_seeds, nq, np.ascontiguousarray(head[:, 2]),
             s["best"], s["top_valid"], s["top_len"], s["top_cov_t"],
             eqp, etp, sqp, stp, ok23, K)
-        if acc is not None:
-            self._emit_accepted(queries, acc, start, end, q_offset,
-                                q_inset, s["top_cov_t"], results, base)
+        if acc is None:
+            self._walk_candidates_py(queries, num_seeds, s, head, bounds,
+                                     start, end, q_offset, q_inset, ok23,
+                                     eqp, etp, sqp, stp, results, base, K)
             return
-        self._walk_candidates_py(queries, num_seeds, s, head, bounds,
-                                 start, end, q_offset, q_inset, ok23,
-                                 eqp, etp, sqp, stp, results, base, K)
-
-    def _emit_accepted(self, queries, acc, start, end, q_offset, q_inset,
-                       cov_t, results, base: int):
-        """Build Mapping objects from the native walk's accepted
-        ``(qi, b, j, rc)`` tuples (emitted in the reference walk order,
-        query-major)."""
         acc_qi, acc_b, acc_j, acc_rc = acc
-        n = acc_qi.shape[0]
+        rows = (acc_qi.astype(np.int64) + base, start[acc_b, acc_j],
+                end[acc_b, acc_j], q_offset[acc_b, acc_j],
+                q_inset[acc_b, acc_j], acc_rc,
+                s["top_cov_t"][acc_b, acc_j])
+        if results is None:
+            return rows
+        self._emit_accepted(queries, rows, results, base)
+
+    def _emit_accepted(self, queries, rows, results, base: int):
+        """Build Mapping objects from the native walk's accepted rows
+        (emitted in the reference walk order, query-major)."""
+        n = rows[0].shape[0]
         if n == 0:
             return
-        starts = start[acc_b, acc_j].tolist()
-        ends = end[acc_b, acc_j].tolist()
-        qos = q_offset[acc_b, acc_j].tolist()
-        qns = q_inset[acc_b, acc_j].tolist()
-        ids = cov_t[acc_b, acc_j].tolist()
-        rcs = acc_rc.tolist()
-        qis = acc_qi.tolist()
+        qis, starts, ends, qos, qns, rcs, ids = (a.tolist() for a in rows)
         lo = 0
         while lo < n:
             hi = lo
             qi = qis[lo]
             while hi < n and qis[hi] == qi:
                 hi += 1
-            query = queries[qi]
+            query = queries[qi - base]
             res = [Mapping(query, starts[i], ends[i], qos[i], qns[i],
                            rcs[i], ids[i]) for i in range(lo, hi)]
-            results[base + qi] = _dedup_by_position(res)
+            results[qi] = _dedup_by_position(res)
             lo = hi
 
     def _walk_candidates_py(self, queries, num_seeds, s, head, bounds,
@@ -405,30 +454,13 @@ class Mapper:
                     m.query = reads[i]
                 results[i] = ms
 
-        # long reads stage 1: both ends
+        # long reads stage 1: both ends, in arrays where the native
+        # library loaded
         with span("map.ends"):
-            subqs = []
-            for i in long_idx:
-                r = reads[i]
-                subqs.append(r.subsequence(0, es))
-                subqs.append(r.subsequence(len(r) - es, len(r)))
-            end_maps = self.perform_mapping_batch(subqs)
-            states = {}
-            for idx, i in enumerate(long_idx):
-                r = reads[i]
-                open_a = _remove_dominated(end_maps[2 * idx],
-                                           end_maps[2 * idx], len(r))
-                open_b = _remove_dominated(end_maps[2 * idx + 1],
-                                           end_maps[2 * idx + 1], len(r))
-                for m in open_a + open_b:
-                    m.query = r
-                open_a, open_b, matched = self.match_pairs(open_a, open_b)
-                if matched:
-                    results[i] = matched
-                elif len(r) < 3 * es:
-                    results[i] = open_a + open_b
-                else:
-                    states[i] = (open_a, open_b)
+            if native.load() is not None:
+                states = self._ends_native(reads, long_idx, results)
+            else:
+                states = self._ends_py(reads, long_idx, results)
 
         # stage 2: mapNext (two rounds of stepping inward), batched
         with span("map.next"):
@@ -438,6 +470,103 @@ class Mapper:
         with span("map.split"):
             self._split_stage(reads, states, results)
         return [r if r is not None else [] for r in results]
+
+    def _ends_py(self, reads, long_idx, results) -> dict:
+        """The ends phase on objects: each long read's two end windows
+        mapped, each end's dominated mappings dropped, the ends paired.
+        A read with pairs, or under 3 * ``edge_size``, gets its results;
+        the rest are returned open, ``{i: (open_a, open_b)}``.  The route
+        without the native library, and the twin ``_ends_native`` is held
+        to."""
+        es = self.edge_size
+        subqs = []
+        for i in long_idx:
+            r = reads[i]
+            subqs.append(r.subsequence(0, es))
+            subqs.append(r.subsequence(len(r) - es, len(r)))
+        return self._pair_ends_py(reads, long_idx,
+                                  self.perform_mapping_batch(subqs), results)
+
+    def _pair_ends_py(self, reads, long_idx, end_maps, results) -> dict:
+        """``_ends_py`` after the walk: ``end_maps[2 * t]`` and
+        ``[2 * t + 1]`` are long read t's deduplicated end mappings."""
+        es = self.edge_size
+        states = {}
+        for idx, i in enumerate(long_idx):
+            r = reads[i]
+            open_a = _remove_dominated(end_maps[2 * idx],
+                                       end_maps[2 * idx], len(r))
+            open_b = _remove_dominated(end_maps[2 * idx + 1],
+                                       end_maps[2 * idx + 1], len(r))
+            for m in open_a + open_b:
+                m.query = r
+            open_a, open_b, matched = self.match_pairs(open_a, open_b)
+            if matched:
+                results[i] = matched
+            elif len(r) < 3 * es:
+                results[i] = open_a + open_b
+            else:
+                states[i] = (open_a, open_b)
+        return states
+
+    def _ends_native(self, reads, long_idx, results) -> dict:
+        """``_ends_py`` in arrays: the end windows as rows over the long
+        reads' codes (no subsequence), the walk's accepted rows, and one
+        native call (``native.pair_ends``, the interpreter lock released)
+        for the dedup, dominance and pairing of every read.  Mapping
+        objects are built only for a read's results and open lists."""
+        if not long_idx:
+            return {}
+        es = self.edge_size
+        n = len(long_idx)
+        longs = [reads[i] for i in long_idx]
+        lens = np.fromiter(map(len, longs), np.int64, n)
+        offset = np.fromiter((r.offset for r in longs), np.int64, n)
+        inset = np.fromiter((r.inset for r in longs), np.int64, n)
+        # windows [0, es) and [len - es, len), as Sequence.subsequence
+        # cuts them (end clipped to the read), their codes in one buffer
+        a_end = np.minimum(es, lens)
+        b_start = lens - es
+        wlen = np.stack([a_end, lens - b_start], 1).ravel()
+        parts = [None] * (2 * n)
+        parts[0::2] = [r.codes[:es] for r in longs]
+        parts[1::2] = [r.codes[len(r) - es:] for r in longs]
+        off = np.zeros(2 * n, np.int64)
+        np.cumsum(wlen[:-1], out=off[1:])
+        rows = WindowRows(
+            _joined_codes(parts, int(off[-1] + wlen[-1])), off, wlen,
+            np.stack([offset, offset + b_start], 1).ravel(),
+            np.stack([inset + lens - a_end, inset], 1).ravel())
+        return self._pair_ends_native(reads, long_idx,
+                                      self._map_window_rows(rows), results)
+
+    def _pair_ends_native(self, reads, long_idx, accepted,
+                          results) -> dict:
+        """``_pair_ends_py`` on the walk's accepted rows (``accepted``, as
+        ``_map_window_rows`` returns them), in one native call."""
+        n = len(long_idx)
+        longs = [reads[i] for i in long_idx]
+        win, start, end, q_off, q_ins, rc, ids = accepted
+        with span("map.pair"):
+            status, n_a, n_b, *out = native.pair_ends(
+                np.searchsorted(win, np.arange(2 * n + 1)),
+                np.fromiter(map(len, longs), np.int64, n), self.edge_size,
+                start, end, q_off, q_ins, rc, ids, self.circular,
+                len(self.reference))
+            cnt = n_a + n_b
+            qs = [longs[t] for t in np.repeat(np.arange(n), cnt).tolist()]
+            ms = list(map(Mapping, qs, *(a.tolist() for a in out)))
+            stops = np.cumsum(cnt).tolist()
+            states = {}
+            for i, st, lo, na, hi in zip(long_idx, status.tolist(),
+                                         [0] + stops[:-1], n_a.tolist(),
+                                         stops):
+                if st == 2:
+                    states[i] = (ms[lo:lo + na], ms[lo + na:hi])
+                else:
+                    results[i] = ms[lo:hi]
+        _ENDS.count(n - len(states), len(states))
+        return states
 
     def _map_next_stage(self, reads, states, results):
         """Batched mapNext (ref: mapping/mapping.go:305-383)."""
@@ -644,6 +773,21 @@ class Mapper:
 
     def map(self, read: Sequence) -> List[Mapping]:
         return self.map_batch([read])[0]
+
+
+def _joined_codes(parts: List[np.ndarray], total: int) -> np.ndarray:
+    """The code arrays ``parts`` (``total`` codes) in one uint8 buffer.
+    ``bytes.join`` copies them holding the interpreter lock throughout;
+    numpy's concatenate hands the lock back and forth part by part, which
+    two shard threads doing the same turn into a convoy.  Parts that are no
+    contiguous one-byte buffers go through numpy."""
+    try:
+        buf = b"".join(parts)
+    except (BufferError, TypeError):
+        buf = b""
+    if len(buf) == total:
+        return np.frombuffer(buf, np.uint8)
+    return np.concatenate(parts).astype(np.uint8)
 
 
 def _dedup_by_position(results: List[Mapping]) -> List[Mapping]:

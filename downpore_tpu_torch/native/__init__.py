@@ -120,6 +120,11 @@ def load() -> Optional[ctypes.CDLL]:
                                       ctypes.c_int32, i32p, i32p, i32p,
                                       u8p, ctypes.c_int64]
         L.walk_candidates.restype = ctypes.c_int64
+        L.pair_ends.argtypes = [
+            ctypes.c_int64, i64p, ctypes.c_int64, i64p, i64p, i64p, i64p,
+            i64p, u8p, i64p, ctypes.c_int32, ctypes.c_int64, u8p, i64p,
+            i64p, i64p, i64p, i64p, i64p, u8p, i64p]
+        L.pair_ends.restype = ctypes.c_int64
         L.band_update_rounds.argtypes = [u8p, u8p, ctypes.c_int64,
                                          ctypes.c_int32, ctypes.c_int32,
                                          ctypes.c_int32]
@@ -359,6 +364,49 @@ def walk_candidates(bounds: np.ndarray, num_seeds: np.ndarray, nq: int,
     cnt = min(int(cnt), cap)  # cap = N*K is the true worst case
     return (out_qi[:cnt], out_b[:cnt], out_j[:cnt],
             out_rc[:cnt].astype(bool))
+
+
+def pair_ends(win_bounds: np.ndarray, read_len: np.ndarray, es: int,
+              start: np.ndarray, end: np.ndarray, q_offset: np.ndarray,
+              q_inset: np.ndarray, rc: np.ndarray, ids: np.ndarray,
+              circular: bool, ref_len: int):
+    """The mapper's ends phase after the walk, every long read in one call
+    (exact twin of ``mapping.mapper.Mapper._ends_py``): read t's end
+    windows are 2t and 2t+1, window w's accepted rows in walk order at
+    ``[win_bounds[w], win_bounds[w+1])``.  Returns ``(status, n_a, n_b,
+    start, end, q_offset, q_inset, rc, ids)``: per read 0 matched, 1
+    closed (under 3 * ``es``: its open ends are the result), 2 still open;
+    its rows read-major, ``n_a`` then ``n_b`` of them (a matched read's
+    pairs in ``n_a``).  None without the toolchain."""
+    L = load()
+    if L is None or not hasattr(L, "pair_ends"):
+        return None
+    n = len(read_len)
+    win_bounds = np.ascontiguousarray(win_bounds, np.int64)
+    read_len = np.ascontiguousarray(read_len, np.int64)
+    ins = [np.ascontiguousarray(a, np.int64)
+           for a in (start, end, q_offset, q_inset)]
+    rc = np.ascontiguousarray(rc, np.uint8)
+    ids = np.ascontiguousarray(ids, np.int64)
+    rows = int(win_bounds[-1]) if len(win_bounds) else -1
+    if len(win_bounds) != 2 * n + 1 or \
+            any(len(a) != rows for a in (*ins, rc, ids)):
+        raise ValueError("pair_ends: 2 * reads + 1 window bounds, and one "
+                         "value a row in every column")
+    cap = max(1, rows)
+    status = np.empty(n, np.uint8)
+    n_a = np.empty(n, np.int64)
+    n_b = np.empty(n, np.int64)
+    outs = [np.empty(cap, np.int64) for _ in range(4)]
+    o_rc = np.empty(cap, np.uint8)
+    o_ids = np.empty(cap, np.int64)
+    cnt = L.pair_ends(
+        n, _ptr(read_len), es, _ptr(win_bounds), *[_ptr(a) for a in ins],
+        _ptr(rc), _ptr(ids), int(bool(circular)), ref_len, _ptr(status),
+        _ptr(n_a), _ptr(n_b), *[_ptr(a) for a in outs], _ptr(o_rc),
+        _ptr(o_ids))
+    return (status, n_a, n_b, *[a[:cnt] for a in outs],
+            o_rc[:cnt].astype(bool), o_ids[:cnt])
 
 
 def index_fastq(buf: bytes):

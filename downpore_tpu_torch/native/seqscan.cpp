@@ -495,6 +495,181 @@ extern "C" int64_t walk_candidates(
 }
 
 // --------------------------------------------------------------------
+// The mapper's ends phase after the walk, for every long read (exact
+// twin of mapping.mapper.Mapper._ends_py): per end window the walk's
+// accepted mappings deduplicated by position (ref: mapping.go:590-608),
+// each end's dominated mappings dropped (mapping.go:387-428), then the
+// ends paired (mapping.go:131-203).  The Python lists become index
+// vectors into the rows; list order, stable sorts, identity (the same
+// row) and match_pairs' swap-removes are kept step for step.
+namespace ends {
+
+struct Row {
+    int64_t start, end, qo, qi, ids;
+    bool rc;
+};
+
+static inline int64_t floor_div(int64_t a, int64_t b) {
+    const int64_t q = a / b;
+    return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+
+// Mapper.is_consistent (ref: mapping.go:131-160); Python's // is floor
+// division and int() truncates toward zero
+static bool consistent(const Row& left, const Row& right, int64_t qlen,
+                       bool circular, int64_t ref_len) {
+    if (left.rc != right.rc) return false;
+    const int64_t expected = right.qo - qlen + left.qi;
+    int64_t distance = left.rc ? left.start - right.end
+                               : right.start - left.end;
+    if (circular && distance < -50) distance += ref_len;
+    if (distance < 50 && expected < 50 && distance > -50) return true;
+    if (distance < 500)
+        return expected < floor_div(distance * 3, 2)
+            && expected > floor_div(distance * 2, 3);
+    if (distance > 5000)
+        return expected < floor_div(distance * 10, 9)
+            && expected > floor_div(distance * 9, 10);
+    // the product is rounded before the sum, as in Python: a volatile
+    // keeps -march=native from contracting the two into one FMA
+    volatile double scaled =
+        ((double)(distance - 500) / 4500.0) * (10.0 / 9.0 - 3.0 / 2.0);
+    const double ratio = 3.0 / 2.0 + scaled;
+    return distance < (int64_t)((double)expected * ratio)
+        && distance > (int64_t)((double)expected / ratio);
+}
+
+// _dedup_by_position over rows [lo, hi) of one window
+static void dedup(const Row* rows, int64_t lo, int64_t hi,
+                  std::vector<int64_t>& out) {
+    out.clear();
+    for (int64_t i = lo; i < hi; i++) out.push_back(i);
+    if (out.size() <= 1) return;
+    std::stable_sort(out.begin(), out.end(), [rows](int64_t a, int64_t b) {
+        return rows[a].start < rows[b].start;
+    });
+    size_t n = 0;
+    for (size_t p = 0; p < out.size(); p++) {
+        const int64_t m = out[p];
+        if (n > 0) {
+            const Row& last = rows[out[n - 1]];
+            if (last.rc == rows[m].rc && rows[m].start < last.end) {
+                if (last.end - last.start < rows[m].end - rows[m].start)
+                    out[n - 1] = m;
+                continue;
+            }
+        }
+        out[n++] = m;
+    }
+    out.resize(n);
+}
+
+// _remove_dominated(x, x, qlen): both of its sorted copies are one order,
+// so "e is not nxt" is a different position
+static void remove_dominated(const Row* rows, std::vector<int64_t>& x,
+                             int64_t qlen, std::vector<int64_t>& keep) {
+    if (x.empty()) return;
+    std::stable_sort(x.begin(), x.end(), [rows](int64_t a, int64_t b) {
+        return rows[a].qo < rows[b].qo;
+    });
+    keep.clear();
+    const size_t n = x.size();
+    size_t j = 0;
+    for (size_t p = 0; p < n; p++) {
+        const Row& nxt = rows[x[p]];
+        while (j < n && qlen - rows[x[j]].qi < nxt.qo) j++;
+        if (j == n) {
+            keep.push_back(x[p]);
+            continue;
+        }
+        bool dominated = false;
+        for (size_t kk = j;
+             !dominated && kk < n && rows[x[kk]].qo < qlen - nxt.qi; kk++) {
+            const Row& e = rows[x[kk]];
+            if (kk != p && e.ids * 4 > nxt.ids * 5) {
+                const int64_t start = std::max(nxt.qo, e.qo);
+                const int64_t end = qlen - std::max(nxt.qi, e.qi);
+                dominated = (end - start) * 10
+                    > (qlen - nxt.qo - nxt.qi) * 9;
+            }
+        }
+        if (!dominated) keep.push_back(x[p]);
+    }
+    x.swap(keep);
+}
+
+}  // namespace ends
+
+// Inputs: n_reads long reads, read t's end windows 2t and 2t+1 with the
+// walk's accepted rows of window w at [win_bounds[w], win_bounds[w+1])
+// in walk order.  Per read, status 0: matched (the pairs' rows); 1: the
+// read is under 3 * es, so its open ends are the result (open_a then
+// open_b); 2: still open, open_a's n_a rows then open_b's n_b rows for
+// the next phase.  Rows are written read-major, at most one a row in.
+// Returns the rows written.
+extern "C" int64_t pair_ends(
+    int64_t n_reads, const int64_t* read_len, int64_t es,
+    const int64_t* win_bounds, const int64_t* start, const int64_t* end,
+    const int64_t* qo, const int64_t* qi, const uint8_t* rc,
+    const int64_t* ids, int32_t circular, int64_t ref_len,
+    uint8_t* status, int64_t* n_a, int64_t* n_b,
+    int64_t* o_start, int64_t* o_end, int64_t* o_qo, int64_t* o_qi,
+    uint8_t* o_rc, int64_t* o_ids) {
+    using ends::Row;
+    const int64_t n_rows = win_bounds[2 * n_reads];
+    std::vector<Row> rows((size_t)n_rows);
+    for (int64_t i = 0; i < n_rows; i++)
+        rows[i] = Row{start[i], end[i], qo[i], qi[i], ids[i], rc[i] != 0};
+    const Row* R = rows.data();
+    std::vector<int64_t> a, b, keep;
+    std::vector<Row> matched;
+    int64_t w = 0;
+    auto put = [&](const Row& r) {
+        o_start[w] = r.start; o_end[w] = r.end; o_qo[w] = r.qo;
+        o_qi[w] = r.qi; o_rc[w] = r.rc ? 1 : 0; o_ids[w] = r.ids;
+        w++;
+    };
+    for (int64_t t = 0; t < n_reads; t++) {
+        const int64_t qlen = read_len[t];
+        ends::dedup(R, win_bounds[2 * t], win_bounds[2 * t + 1], a);
+        ends::dedup(R, win_bounds[2 * t + 1], win_bounds[2 * t + 2], b);
+        ends::remove_dominated(R, a, qlen, keep);
+        ends::remove_dominated(R, b, qlen, keep);
+        // match_pairs: i steps down past the element moved into slot i
+        matched.clear();
+        for (int64_t i = (int64_t)a.size() - 1; i >= 0; i--) {
+            const Row& ra = R[a[i]];
+            for (int64_t j = (int64_t)b.size() - 1; j >= 0; j--) {
+                const Row& rb = R[b[j]];
+                if (!ends::consistent(ra, rb, qlen, circular != 0, ref_len))
+                    continue;
+                matched.push_back(Row{ra.rc ? rb.start : ra.start,
+                                      ra.rc ? ra.end : rb.end, ra.qo, rb.qi,
+                                      ra.ids + rb.ids, ra.rc});
+                a[i] = a.back();
+                a.pop_back();
+                b[j] = b.back();
+                b.pop_back();
+                break;
+            }
+        }
+        if (!matched.empty()) {
+            status[t] = 0;
+            n_a[t] = (int64_t)matched.size();
+            n_b[t] = 0;
+            for (const Row& r : matched) put(r);
+            continue;
+        }
+        status[t] = qlen < 3 * es ? 1 : 2;
+        n_a[t] = (int64_t)a.size();
+        n_b[t] = (int64_t)b.size();
+        for (int64_t i : a) put(R[i]);
+        for (int64_t i : b) put(R[i]);
+    }
+    return w;
+}
+
+// --------------------------------------------------------------------
 // Host speed-of-light microbenchmark for the DTW band update — the
 // reference's hottest consensus loop (ref:
 // sequence/alignment/asm_amd64.s:17-149: per 32xuint16 band,

@@ -100,6 +100,32 @@ from .transfer import HostCopy, Pending, on_device
 _BINNED_MIN_C = 1024
 _BINNED_CB = 128
 
+
+class WindowRows:
+    """Query windows as rows over one code buffer: window i is
+    ``codes[off[i] : off[i] + lens[i]]``, with ``offset[i]`` and
+    ``inset[i]`` the bases before and after it in its read
+    (``Sequence.subsequence``'s), so a batch of windows is packed and
+    walked with no sequence object a window."""
+
+    __slots__ = ("codes", "off", "lens", "offset", "inset")
+
+    def __init__(self, codes: np.ndarray, off: np.ndarray, lens: np.ndarray,
+                 offset: np.ndarray, inset: np.ndarray):
+        self.codes = codes
+        self.off = off
+        self.lens = lens
+        self.offset = offset
+        self.inset = inset
+
+    def __len__(self) -> int:
+        return len(self.lens)
+
+    def __getitem__(self, rows: slice) -> "WindowRows":
+        return WindowRows(self.codes, self.off[rows], self.lens[rows],
+                          self.offset[rows], self.inset[rows])
+
+
 def _count_rows(membership, buckets):
     """Retrieval hit counts: ``buckets [M, R]`` (pad -1) -> ``[M, C]``
     int32, the sum of the int8 membership rows of each row's live
@@ -827,7 +853,7 @@ class MapEngine:
     # up to this many seeds; beyond it num_sets undercounts, which only
     # lowers min_count (recall-safe, the chain DP is the filter)
 
-    def _pack_windows_native(self, windows: List, lens_b: np.ndarray):
+    def _pack_windows_native(self, windows, lens_b: np.ndarray):
         """One-pass native packer (native/seqscan.cpp pack_windows): same
         outputs as the numpy pipeline of ``pack_query_windows``.  None
         when the toolchain is absent."""
@@ -841,19 +867,24 @@ class MapEngine:
                     np.ascontiguousarray(self.usable, np.uint8))
             self._nat_tables = tabs
         kt, km, us = tabs
-        off = np.zeros(len(windows), np.int64)
-        np.cumsum(lens_b[:-1], out=off[1:])
-        codes = np.empty(int(lens_b.sum()), np.uint8)
-        for i, w in enumerate(windows):
-            codes[off[i] : off[i] + lens_b[i]] = w.codes
+        if isinstance(windows, WindowRows):
+            codes, off = windows.codes, windows.off
+        else:
+            off = np.zeros(len(windows), np.int64)
+            np.cumsum(lens_b[:-1], out=off[1:])
+            codes = np.empty(int(lens_b.sum()), np.uint8)
+            for i, w in enumerate(windows):
+                codes[off[i] : off[i] + lens_b[i]] = w.codes
         return native.pack_windows(codes, off, lens_b, self.k, self.nq,
                                    self._NQS, kt, km, us, self.num_seeds,
                                    self.H)
 
     @traced("map.pack")
-    def pack_query_windows(self, windows: List) -> tuple:
-        """Seed features of plain sequence windows, forward and reverse
-        complement rows interleaved ([2i] = fw of window i, [2i+1] = rc).
+    def pack_query_windows(self, windows) -> tuple:
+        """Seed features of plain sequence windows (a list of sequences,
+        or ``WindowRows``, which only the native packer takes), forward
+        and reverse complement rows interleaved ([2i] = fw of window i,
+        [2i+1] = rc).
         Returns ``(q_seeds, q_pos, q_rb, q_db, num_sets, q_len,
         num_seeds)``: the query features plus the exact per-row
         extracted-seed counts (ref: mapping/mapping.go:497-505)."""
@@ -861,7 +892,10 @@ class MapEngine:
         k = self.k
         nq = self.nq
         M = len(windows)
-        lens_b = np.array([len(w) for w in windows], np.int64)
+        if isinstance(windows, WindowRows):
+            lens_b = windows.lens
+        else:
+            lens_b = np.array([len(w) for w in windows], np.int64)
 
         native_out = self._pack_windows_native(windows, lens_b)
         if native_out is not None:

@@ -39,6 +39,7 @@ PARENTS = {
     "map.ends": ("map.shard",),
     "map.next": ("map.shard",),
     "map.split": ("map.shard",),
+    "map.pair": ("map.ends",),
     "map.stage": ("map.short", "map.ends", "map.next", "map.split"),
     "map.pack": ("map.stage",),
     "map.dispatch": ("map.stage",),
