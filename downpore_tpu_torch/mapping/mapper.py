@@ -202,13 +202,15 @@ class Mapper:
         window ``base + qi``.  The native walk runs when the host library
         loaded; its pure-Python twin otherwise.
 
-        All per-(pair, chain) geometry — reference start/end, query
-        offset/inset, the 2/3-coverage rule — is precomputed with numpy
-        over the whole fetched batch; the remaining Python loop only
-        applies the *sequential* adaptive-threshold rules the reference
-        defines over the candidate walk order (thresholds ratchet up as
-        chains are accepted, affecting later candidates of the same
-        query), reading precomputed lists."""
+        The walk reads the summaries and the 2/3-coverage rule of every
+        (pair, chain), computed with numpy over the whole fetched batch;
+        the remaining loop applies only the *sequential* adaptive-threshold
+        rules the reference defines over the candidate walk order
+        (thresholds ratchet up as chains are accepted, affecting later
+        candidates of the same query).  The mappings' geometry (reference
+        start/end, query offset/inset) is computed for the accepted chains
+        alone: a repeat-rich genome's batch holds millions of pairs and
+        accepts a few per query."""
         if coll is None:
             return
         head, packed = coll
@@ -219,57 +221,56 @@ class Mapper:
         K = 4
         s = unpack_summary(packed, K, lean=self.engine.lean)
         mi = head[:, 0]
-        ci = head[:, 1]
-        eng = self.engine
-        ch_off = eng.chunk_off[ci]
-        ch_inset = eng.chunk_inset[ci]
-        ch_len = eng.chunk_len[ci]
-        ref_len = len(self.reference)
         nq = len(queries)
         qi_row = mi >> 1
-        is_rc = (mi & 1).astype(bool)
         if isinstance(queries, WindowRows):
-            qlen = queries.lens[qi_row]
-            qoff = queries.offset[qi_row]
-            qins = queries.inset[qi_row]
+            qlen, qoff, qins = queries.lens, queries.offset, queries.inset
         else:
-            qlen = np.fromiter((len(q) for q in queries), np.int64,
-                               nq)[qi_row]
-            qoff = np.fromiter((q.offset for q in queries), np.int64,
-                               nq)[qi_row]
-            qins = np.fromiter((q.inset for q in queries), np.int64,
-                               nq)[qi_row]
-        # RC rows swap offset/inset (Sequence.reverse_complement semantics)
-        moff = np.where(is_rc, qins, qoff)
-        mins_ = np.where(is_rc, qoff, qins)
+            qlen = np.fromiter((len(q) for q in queries), np.int64, nq)
+            qoff = np.fromiter((q.offset for q in queries), np.int64, nq)
+            qins = np.fromiter((q.inset for q in queries), np.int64, nq)
         sqp, stp = s["top_sqp"], s["top_stp"]
         eqp, etp = s["top_eqp"], s["top_etp"]
-        start = ch_off[:, None] + stp
-        end = ref_len - ch_inset[:, None] - (ch_len[:, None] - etp - k)
-        if self.circular:
-            start = np.where(start > ref_len, start - ref_len, start)
-        qil = qlen[:, None] - eqp - k
-        ok23 = (sqp + qil) <= (qlen[:, None] * 2) // 3
-        q_offset = np.where(is_rc[:, None], qil + mins_[:, None],
-                            sqp + moff[:, None])
-        q_inset = np.where(is_rc[:, None], sqp + moff[:, None],
-                           qil + mins_[:, None])
+        ql = qlen[qi_row].astype(np.int32)[:, None]
+        ok23 = (sqp + (ql - eqp - k)) <= (ql * 2) // 3
         # rows are sorted by mi (query-major compaction order)
         bounds = np.searchsorted(mi, np.arange(2 * nq + 1))
+
+        def geometry(b, j):
+            """(start, end, q_offset, q_inset) of chain ``j`` of rows
+            ``b`` (index arrays that broadcast)."""
+            eng = self.engine
+            ci = head[b, 1]
+            qi = qi_row[b]
+            is_rc = (mi[b] & 1).astype(bool)
+            # RC rows swap offset/inset (Sequence.reverse_complement)
+            moff = np.where(is_rc, qins[qi], qoff[qi])
+            mins_ = np.where(is_rc, qoff[qi], qins[qi])
+            ref_len = len(self.reference)
+            start = eng.chunk_off[ci] + stp[b, j]
+            end = ref_len - eng.chunk_inset[ci] \
+                - (eng.chunk_len[ci] - etp[b, j] - k)
+            if self.circular:
+                start = np.where(start > ref_len, start - ref_len, start)
+            qil = qlen[qi] - eqp[b, j] - k
+            sq = sqp[b, j]
+            return (start, end, np.where(is_rc, qil + mins_, sq + moff),
+                    np.where(is_rc, sq + moff, qil + mins_))
 
         acc = native.walk_candidates(
             bounds, num_seeds, nq, np.ascontiguousarray(head[:, 2]),
             s["best"], s["top_valid"], s["top_len"], s["top_cov_t"],
             eqp, etp, sqp, stp, ok23, K)
         if acc is None:
+            start, end, q_offset, q_inset = geometry(
+                np.arange(N)[:, None], np.arange(K)[None, :])
             self._walk_candidates_py(queries, num_seeds, s, head, bounds,
                                      start, end, q_offset, q_inset, ok23,
                                      eqp, etp, sqp, stp, results, base, K)
             return
         acc_qi, acc_b, acc_j, acc_rc = acc
-        rows = (acc_qi.astype(np.int64) + base, start[acc_b, acc_j],
-                end[acc_b, acc_j], q_offset[acc_b, acc_j],
-                q_inset[acc_b, acc_j], acc_rc,
+        rows = (acc_qi.astype(np.int64) + base,
+                *geometry(acc_b, acc_j), acc_rc,
                 s["top_cov_t"][acc_b, acc_j])
         if results is None:
             return rows

@@ -213,7 +213,7 @@ def summarize_dp(out, min_match, alen, k: int, top_k: int = 4,
     return torch.cat([c.to(torch.int32) for c in cols], dim=1)
 
 
-def compact_indices(mask_flat, size: int):
+def compact_indices(mask_flat, size: int, skip=None):
     """First ``size`` indices of the set entries of ``mask_flat``,
     ascending (``torch.nonzero``'s order), padded with ``len(mask_flat)``
     past the count, and the total count as a 0-d int32 tensor on the
@@ -221,10 +221,14 @@ def compact_indices(mask_flat, size: int):
     read back to the host.  Slot j holds the first index whose running
     count of set entries reaches j + 1: a binary search over the int32
     inclusive prefix sum, which is ``len(mask_flat)`` once j passes the
-    count."""
+    count.  ``skip`` (a 0-d int32 tensor) passes over that many set
+    entries first: slot j holds the one whose count reaches skip + j + 1,
+    so consecutive skips of ``size`` cut the whole list into pieces."""
     rank = torch.cumsum(mask_flat.to(torch.int32), 0, dtype=torch.int32)
     want = torch.arange(1, size + 1, dtype=torch.int32,
                         device=mask_flat.device)
+    if skip is not None:
+        want = want + skip
     sel = torch.searchsorted(rank, want)
     n = rank[-1] if rank.numel() else torch.zeros(
         (), dtype=torch.int32, device=mask_flat.device)

@@ -22,10 +22,12 @@ back; the host copy of the rows and of the passing count starts behind
 the work (``transfer.HostCopy``).  ``collect_arrays_many`` waits for it;
 a block whose count exceeded its budget is re-run there with the budget
 grown 4x, as the JAX collect does, so the output never depends on the
-budget.  The budgets start as the JAX engine's (``map_budget``,
-``overlap_budget``); a map dispatch of a route and size already
-collected runs at a quarter over the largest count collected there when
-smaller (``_map_budget``), and overlap dispatches at the job plan's
+budget; a count past ``pair_cap`` (a repeat-rich genome's thousands of
+candidate chunks a read) re-runs in pieces of that many pairs, so the
+card's memory bounds no batch.  The budgets start as the JAX engine's
+(``map_budget``, ``overlap_budget``); a map dispatch of a route and size
+already collected runs at a quarter over the largest count collected there
+when smaller (``_map_budget``), and overlap dispatches at the job plan's
 (``query_chains``).
 
 As in the JAX engine, a batch's rows are padded to a shape bucket
@@ -78,6 +80,7 @@ on-device bucket derivation are off, as in the JAX engine.
 from __future__ import annotations
 
 import functools
+import threading
 from collections import Counter
 from typing import List
 
@@ -86,6 +89,7 @@ import torch
 
 from .. import resolve_device
 from ..parallel.mesh import DeviceGrid
+from ..utils import metrics
 from ..utils.metrics import span, traced
 from . import captured
 from . import match as match_ops
@@ -279,18 +283,20 @@ def _chain_pack_tail(mi, ci, dc, live, q_seeds, q_pos, base_min, q_len,
 
 def _map_from_counts(counts, dcounts, q_seeds, q_pos, min_count, base_min,
                      q_len, t_seeds, t_pos, *, k: int, pair_budget: int,
-                     top_k: int = 4, lean: bool = False):
+                     top_k: int = 4, lean: bool = False, skip=None):
     """Gate + chain + summary from retrieval counts, over the first
-    ``pair_budget`` passing pairs.  Passing pairs come out query-major,
-    chunk-ascending (the order the reference walks candidates), dead
-    slots after them.  Returns ``(head, packed16, n_ok)``, ``n_ok`` the
-    passing count as a 0-d device tensor (collect re-runs above the
-    budget)."""
+    ``pair_budget`` passing pairs (after the first ``skip``, a 0-d device
+    tensor, where given: one piece of a count too large for one run).
+    Passing pairs come out query-major, chunk-ascending (the order the
+    reference walks candidates), dead slots after them.  Returns
+    ``(head, packed16, n_ok)``, ``n_ok`` the passing count as a 0-d
+    device tensor (collect re-runs above the budget)."""
     M, C = counts.shape
     ok = (counts >= min_count[:, None]) & (dcounts >= base_min[:, None]) \
         & (min_count[:, None] > 0)
     # no more pairs can pass than the gate has
-    sel, n_ok = compact_indices(ok.reshape(-1), min(pair_budget, M * C))
+    sel, n_ok = compact_indices(ok.reshape(-1), min(pair_budget, M * C),
+                                skip)
     live, mi, ci = _budget_slots(sel, M * C, C)
     dc = dcounts[mi, ci]
     return _chain_pack_tail(mi, ci, dc, live, q_seeds, q_pos, base_min,
@@ -300,19 +306,21 @@ def _map_from_counts(counts, dcounts, q_seeds, q_pos, min_count, base_min,
 
 def _fused_map_c(q_pos, q_rb, q_db, min_count, base_min, q_len, q_seeds,
                  membership, t_seeds, t_pos, *, k: int, pair_budget: int,
-                 top_k: int = 4, lean: bool = False):
+                 top_k: int = 4, lean: bool = False, skip=None):
     """Retrieval + gate + chain + summary with the run/distinct bucket
     arrays shipped from the host (rows whose seeds overflow ``nq``)."""
     counts = _count_rows(membership, q_rb)
     dcounts = _count_rows(membership, q_db)
     return _map_from_counts(counts, dcounts, q_seeds, q_pos, min_count,
                             base_min, q_len, t_seeds, t_pos, k=k,
-                            pair_budget=pair_budget, top_k=top_k, lean=lean)
+                            pair_budget=pair_budget, top_k=top_k, lean=lean,
+                            skip=skip)
 
 
 def _fused_map_d(q_pos, min_count, base_min, q_len, q_seeds, usable,
                  membership, t_seeds, t_pos, *, k: int, pair_budget: int,
-                 top_k: int = 4, hashed: bool = False, lean: bool = False):
+                 top_k: int = 4, hashed: bool = False, lean: bool = False,
+                 skip=None):
     """``_fused_map_c`` with the run/distinct buckets derived on the
     device from the seed ids (``_derive_buckets``): the standard map
     path."""
@@ -321,7 +329,8 @@ def _fused_map_d(q_pos, min_count, base_min, q_len, q_seeds, usable,
     counts, dcounts = _count_rows_pair(membership, q_rb, q_db)
     return _map_from_counts(counts, dcounts, q_seeds, q_pos, min_count,
                             base_min, q_len, t_seeds, t_pos, k=k,
-                            pair_budget=pair_budget, top_k=top_k, lean=lean)
+                            pair_budget=pair_budget, top_k=top_k, lean=lean,
+                            skip=skip)
 
 
 def _derive_bin_mem(membership, NB: int, CB: int):
@@ -374,11 +383,13 @@ def _bb_final(n_bin: int, BB: int, NB: int) -> int:
 
 def _binned_gate(membership, bin_mem, q_rb, q_db, rb1, db1, min_count,
                  base_min, *, NB: int, CB: int, BB: int, C: int,
-                 pair_budget: int, aligned_db: bool):
+                 pair_budget: int, aligned_db: bool, skip=None):
     """Two-level retrieval gate: level 1 gates genome bins on ``bin_mem``
     with the buckets ``rb1``/``db1`` of its hash space, level 2 counts
-    chunks only inside each row's top-``BB`` passing bins.  ``aligned_db``
-    says ``q_db``/``db1`` share the run arrays' slot layout (the
+    chunks only inside each row's top-``BB`` passing bins; the budget's
+    slots hold the first ``pair_budget`` passing pairs after the first
+    ``skip`` (as ``_map_from_counts``).  ``aligned_db`` says
+    ``q_db``/``db1`` share the run arrays' slot layout (the
     ``_derive_buckets`` form), so one gather serves both counts.
 
     Returns ``(mi, ci, dc, live, n_ok, n_bin)``: the budget's slots of
@@ -418,7 +429,7 @@ def _binned_gate(membership, bin_mem, q_rb, q_db, rb1, db1, min_count,
         & (min_count[:, None, None] > 0) \
         & sel_live[:, :, None] & (ci_all < C)
     sel, n_ok = compact_indices(okf.reshape(-1),
-                                min(pair_budget, M * BB * CB))
+                                min(pair_budget, M * BB * CB), skip)
     live, mi, rem = _budget_slots(sel, M * BB * CB, BB * CB)
     s_idx = torch.div(rem, CB, rounding_mode="floor")
     w = rem % CB
@@ -431,7 +442,7 @@ def _fused_map_bd(q_pos, min_count, base_min, q_len, q_seeds, usable,
                   membership, bin_mem, t_seeds, t_pos, *, k: int,
                   pair_budget: int, top_k: int = 4, hashed: bool = False,
                   hashed1: bool = False, lean: bool = False, NB: int,
-                  CB: int, BB: int, C: int):
+                  CB: int, BB: int, C: int, skip=None):
     """``_fused_map_d`` with the two-level binned gate: buckets derived on
     the device, in the bin matrix's hash space too when it differs.
     Returns ``(head, packed16, n_ok, n_bin)``."""
@@ -444,7 +455,8 @@ def _fused_map_bd(q_pos, min_count, base_min, q_len, q_seeds, usable,
         rb1, db1 = _derive_buckets(q_seeds, usable, H1, hashed1)
     mi, ci, dc, live, n_ok, n_bin = _binned_gate(
         membership, bin_mem, q_rb, q_db, rb1, db1, min_count, base_min,
-        NB=NB, CB=CB, BB=BB, C=C, pair_budget=pair_budget, aligned_db=True)
+        NB=NB, CB=CB, BB=BB, C=C, pair_budget=pair_budget, aligned_db=True,
+        skip=skip)
     return _chain_pack_tail(mi, ci, dc, live, q_seeds, q_pos, base_min,
                             q_len, t_seeds, t_pos, k=k, top_k=top_k,
                             lean=lean) + (n_ok, n_bin)
@@ -453,7 +465,7 @@ def _fused_map_bd(q_pos, min_count, base_min, q_len, q_seeds, usable,
 def _fused_map_bc(q_pos, q_rb, q_db, min_count, base_min, q_len, q_seeds,
                   membership, bin_mem, t_seeds, t_pos, *, k: int,
                   pair_budget: int, top_k: int = 4, lean: bool = False,
-                  NB: int, CB: int, BB: int, C: int):
+                  NB: int, CB: int, BB: int, C: int, skip=None):
     """``_fused_map_c`` (buckets shipped from the host) with the two-level
     binned gate.  The shipped buckets live in the membership's hash space,
     so level 1 uses the H-space bin matrix.  Returns ``(head, packed16,
@@ -461,7 +473,7 @@ def _fused_map_bc(q_pos, q_rb, q_db, min_count, base_min, q_len, q_seeds,
     mi, ci, dc, live, n_ok, n_bin = _binned_gate(
         membership, bin_mem, q_rb, q_db, q_rb, q_db, min_count, base_min,
         NB=NB, CB=CB, BB=BB, C=C, pair_budget=pair_budget,
-        aligned_db=False)
+        aligned_db=False, skip=skip)
     return _chain_pack_tail(mi, ci, dc, live, q_seeds, q_pos, base_min,
                             q_len, t_seeds, t_pos, k=k, top_k=top_k,
                             lean=lean) + (n_ok, n_bin)
@@ -576,6 +588,11 @@ def _fused_overlap_d(q_pos, min_count, base_min, q_seeds, usable,
                                 chain_len=chain_len)
 
 
+# anchor slots (pairs x 2 * nq) a map block runs at once: 1 << 27 of them
+# are 2 GiB of anchors ([4, pairs, 2 * nq] int32)
+_ANCHOR_SLOTS = 1 << 27
+
+
 def map_budget(rows: int, collisions: bool) -> int:
     """The JAX engine's default pair budget of a map dispatch over
     ``rows`` query rows (~0.3 passing pairs a row are observed; this
@@ -628,7 +645,12 @@ class MapEngine:
     (flat or binned gate) and the overlapper.  ``routes`` counts the
     dispatches per fused path, ``bins`` the binned dispatches per
     ``(n_bin, BB)`` at the width their collect ended on, ``reruns`` the
-    re-runs at collect by cause (``pair_budget``, ``BB``, both)."""
+    re-runs at collect by cause (``pair_budget``, ``BB``, both).  The
+    class's ``gate_pairs`` sums, over every engine, the passing count each
+    map block's collect ends on (the counter ``map.gate.pairs``)."""
+
+    gate_pairs = 0
+    _pairs_lock = threading.Lock()
 
     STATE_KEYS = ("membership", "t_seeds", "t_pos", "usable_dev",
                   "chunk_off", "chunk_inset", "chunk_len")
@@ -659,6 +681,9 @@ class MapEngine:
         self.routes = Counter()
         self.bins = Counter()
         self.reruns = Counter()
+        # the most pairs a map block runs at once: its anchors within
+        # _ANCHOR_SLOTS, on a 256 grid
+        self.pair_cap = _ANCHOR_SLOTS // (2 * nq) // 256 * 256
         # (route, rows) -> the largest block count of the last collected
         # map dispatch of that route and size (``_map_budget``)
         self._seen = {}
@@ -1064,13 +1089,18 @@ class MapEngine:
         return budget if seen is None else min(budget, _tight(seen))
 
     def _dispatch_block(self, q: dict, tabs: dict, route: str, top_k: int,
-                        budget: int, BB: int):
+                        budget: int, BB: int, skip: int = 0):
         """One data shard's fused map pipeline on its device, at ``budget``
-        pairs (and width ``BB``, binned): ``(head, packed16, n_ok[,
-        n_bin])`` on the device, through ``captured.run`` (seed-sharded:
-        each shard's counts, then the tail from the summed counts)."""
+        pairs (and width ``BB``, binned), after the first ``skip`` passing
+        pairs (an input only where not 0, so a plain re-run keeps the
+        dispatch's inputs): ``(head, packed16, n_ok[, n_bin])`` on the
+        device, through ``captured.run`` (seed-sharded: each shard's
+        counts, then the tail from the summed counts)."""
         inputs = {n: q[n] for n in ("q_pos", "min_count", "base_min",
                                     "q_len", "q_seeds")}
+        if skip:
+            inputs["skip"] = torch.full((), skip, dtype=torch.int32,
+                                        device=tabs["device"])
         tables = dict(t_seeds=tabs["t_seeds"], t_pos=tabs["t_pos"])
         statics = dict(k=self.k, pair_budget=budget, top_k=top_k,
                        lean=self.lean)
@@ -1103,24 +1133,42 @@ class MapEngine:
         the budget or (binned) its most passing bins exceed ``BB``, re-run
         it with the budget grown 4x until it holds the count and ``BB`` at
         ``_bb_final``, the width the JAX engine's doubling ends on (the
-        passing bins do not depend on ``BB``).  Returns ``(head, packed)``
-        of the live rows and the passing count."""
+        passing bins do not depend on ``BB``).  The budget grows no
+        further than ``pair_cap``: runs at that budget step over the
+        passing pairs (``skip``) until they pass the count, so the card's
+        memory bounds no block.  Each run after the first is a re-run, by
+        cause.  Returns ``(head, packed)`` of the live rows and the
+        passing count."""
         cnt, head, packed = p.host.wait()
-        n_ok = int(cnt[0])
-        n_bin = int(cnt[1]) if self._binned else 0
         budget, BB = p.args
-        while n_ok > budget or n_bin > BB:
-            cause = [c for c, over in (("pair_budget", n_ok > budget),
-                                       ("BB", n_bin > BB)) if over]
-            self.reruns["+".join(cause)] += 1
-            BB = _bb_final(n_bin, BB, self._NB) if self._binned else 0
-            while n_ok > budget:
-                budget *= 4
-            with span("map.rerun"):
-                cnt, head, packed = p.rerun(budget, BB)
+        heads, packs, skip = [], [], 0
+        while True:
             n_ok = int(cnt[0])
+            n_bin = int(cnt[1]) if self._binned else 0
+            grow = not skip and n_ok > budget and budget < self.pair_cap
+            if grow or n_bin > BB:
+                cause = "+".join(c for c, over in (("pair_budget", grow),
+                                                   ("BB", n_bin > BB))
+                                 if over)
+                BB = _bb_final(n_bin, BB, self._NB) if self._binned else 0
+                while n_ok > budget and budget < self.pair_cap:
+                    budget = min(budget * 4, self.pair_cap)
+            else:
+                heads.append(head)
+                packs.append(packed)
+                skip += budget
+                if skip >= n_ok:
+                    break
+                cause = "pair_budget"
+            self.reruns[cause] += 1
+            with span("map.rerun"):
+                cnt, head, packed = p.rerun(budget, BB, skip)
+        if len(heads) > 1:
+            head, packed = np.concatenate(heads), np.concatenate(packs)
         if self._binned:
             self.bins[(n_bin, BB)] += 1
+        with MapEngine._pairs_lock:
+            MapEngine.gate_pairs += n_ok
         live = head[:, 0] >= 0
         return head[live], packed[live].astype(np.int32), n_ok
 
@@ -1355,3 +1403,6 @@ class MapEngine:
             mb = ct[b, blen - 1::-1].tolist()
             out[mi].append((ci, dc, blen, ma, mb))
         return out
+
+
+metrics.counter("map.gate.pairs", lambda: MapEngine.gate_pairs)

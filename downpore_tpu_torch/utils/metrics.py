@@ -16,7 +16,8 @@ range.  ``spans()`` returns what a recording kept, in memory.
 ``traced(name)`` makes every call of a function a span.
 
 Counters stay integer attributes of the object that does the work
-(``transfer.upload.bytes``, ``HostCopy.bytes``, ``GRAPHS.captures``);
+(``transfer.upload.bytes``, ``HostCopy.bytes``, ``GRAPHS.captures``,
+``MapEngine.gate_pairs``);
 ``counter(name, read)`` names one for ``counters()``.
 
 ``StageTimer`` accumulates seconds and item counts per named stage, each
