@@ -9,7 +9,8 @@ Resident state on the engine's device:
 * ``usable_dev [UL] int8`` — seeds that carry information (not in every
   chunk),
 * binned mode only: ``bin_mem1 [H1, NB]`` / ``bin_mem2 [H, NB] int8`` —
-  seed-bucket -> genome-bin matrices of the two-level gate.
+  seed-bucket -> genome-bin matrices of the two-level gate, and
+  ``perm_dev [C] int32`` — engine chunk position -> index chunk id.
 
 Per batch of query windows, one ``dispatch_packed`` call enqueues
 retrieval counts and the distinct-seed gate (int8 membership rows
@@ -49,8 +50,11 @@ bins on ``bin_mem``, level 2 counts chunks only inside each query row's
 top-``BB`` passing bins.  The dispatch runs at the JAX engine's starting
 ``BB`` and returns ``n_bin`` (the most passing bins of any row) as a
 device scalar; when it exceeds ``BB``, collect re-runs level 2 at the
-width the JAX engine's doubling ends on (``_bb_final``).  Collected chunk
-ids are translated back to the index's order.
+width the JAX engine's doubling ends on (``_bb_final``).  The card puts
+each run's rows in the walk's order (``_walk_order``: by query row and
+index chunk id, through the resident permutation ``perm_dev``), so the
+collect joins them as they come and orders on the host only the rows of a
+query row that a piece boundary splits.
 
 The overlapper's half: ``dispatch_chains`` runs the same retrieval and
 gate on seed-sequence queries, the forward-only aligner-variant chain DP
@@ -263,18 +267,21 @@ def _budget_slots(sel, N: int, C: int):
 
 
 def _chain_pack_tail(mi, ci, dc, live, q_seeds, q_pos, base_min, q_len,
-                     t_seeds, t_pos, *, k: int, top_k: int, lean: bool):
+                     t_seeds, t_pos, *, k: int, top_k: int, lean: bool,
+                     hc=None):
     """Chain DP + summary packing over the pair budget's slots: the shared
     tail of the flat and binned gates.  Returns ``(head [B, 3] int32
     (query row, chunk, distinct count), packed [B, W] int16)``; a dead
-    slot has query row -1 (collect drops it), min-match ``1 << 20`` and
-    no anchor."""
+    slot has query row -1, min-match ``1 << 20`` and no anchor.  The
+    anchors read the engine's chunk ``ci``; the head carries ``hc``
+    where given (the binned gates' index chunk ids), else ``ci``."""
     mm = torch.where(live, base_min[mi], 1 << 20)
     anchors = _build_anchors(mi, ci, live, q_seeds, q_pos, t_seeds, t_pos)
     out = dp_from_anchors(anchors, k)
     packed = summarize_dp(out, mm, q_len[mi], k, top_k, lean=lean)
     head = torch.stack([torch.where(live, mi, -1).to(torch.int32),
-                        ci.to(torch.int32), dc.to(torch.int32)], dim=1)
+                        (ci if hc is None else hc).to(torch.int32),
+                        dc.to(torch.int32)], dim=1)
     # summaries fit int16 for <= 10 kb chunks; the JAX engine clamps the
     # fetched rows to int16, and empty-row sentinels clamp with them
     packed16 = packed.clamp(-32768, 32767).to(torch.int16)
@@ -438,14 +445,32 @@ def _binned_gate(membership, bin_mem, q_rb, q_db, rb1, db1, min_count,
     return mi, ci, dc, live, n_ok, n_bin
 
 
+def _walk_order(mi, ci, dc, live, perm, C: int):
+    """A binned gate's budget slots in the walk's order: sorted by (query
+    row, index chunk id), dead slots after every live one.  ``perm [C]``
+    maps an engine chunk position to its index chunk id; the gate
+    compacts in (row, bin rank, lane) order, while the walk's thresholds
+    ratchet in index order.  A pair's anchors, chain and summary do not
+    depend on its slot, so only the rows' order changes, and the slots a
+    run holds (``skip``, the budget) stay those of the gate's order.
+    Returns ``(mi, ci, dc, live, hc)``, ``hc`` the slots' index chunk
+    ids."""
+    hc = perm[ci].long()
+    # (row, index id) keys are unique among live slots
+    key = torch.where(live, mi.long() * C + hc, torch.iinfo(torch.int64).max)
+    order = torch.sort(key, stable=True).indices
+    return mi[order], ci[order], dc[order], live[order], hc[order]
+
+
 def _fused_map_bd(q_pos, min_count, base_min, q_len, q_seeds, usable,
-                  membership, bin_mem, t_seeds, t_pos, *, k: int,
+                  membership, bin_mem, t_seeds, t_pos, perm, *, k: int,
                   pair_budget: int, top_k: int = 4, hashed: bool = False,
                   hashed1: bool = False, lean: bool = False, NB: int,
                   CB: int, BB: int, C: int, skip=None):
     """``_fused_map_d`` with the two-level binned gate: buckets derived on
-    the device, in the bin matrix's hash space too when it differs.
-    Returns ``(head, packed16, n_ok, n_bin)``."""
+    the device, in the bin matrix's hash space too when it differs; rows
+    in the walk's order (``_walk_order``).  Returns ``(head, packed16,
+    n_ok, n_bin)``."""
     H = membership.shape[0]
     H1 = bin_mem.shape[0]
     q_rb, q_db = _derive_buckets(q_seeds, usable, H, hashed)
@@ -457,26 +482,28 @@ def _fused_map_bd(q_pos, min_count, base_min, q_len, q_seeds, usable,
         membership, bin_mem, q_rb, q_db, rb1, db1, min_count, base_min,
         NB=NB, CB=CB, BB=BB, C=C, pair_budget=pair_budget, aligned_db=True,
         skip=skip)
+    mi, ci, dc, live, hc = _walk_order(mi, ci, dc, live, perm, C)
     return _chain_pack_tail(mi, ci, dc, live, q_seeds, q_pos, base_min,
                             q_len, t_seeds, t_pos, k=k, top_k=top_k,
-                            lean=lean) + (n_ok, n_bin)
+                            lean=lean, hc=hc) + (n_ok, n_bin)
 
 
 def _fused_map_bc(q_pos, q_rb, q_db, min_count, base_min, q_len, q_seeds,
-                  membership, bin_mem, t_seeds, t_pos, *, k: int,
+                  membership, bin_mem, t_seeds, t_pos, perm, *, k: int,
                   pair_budget: int, top_k: int = 4, lean: bool = False,
                   NB: int, CB: int, BB: int, C: int, skip=None):
     """``_fused_map_c`` (buckets shipped from the host) with the two-level
     binned gate.  The shipped buckets live in the membership's hash space,
-    so level 1 uses the H-space bin matrix.  Returns ``(head, packed16,
-    n_ok, n_bin)``."""
+    so level 1 uses the H-space bin matrix; rows in the walk's order
+    (``_walk_order``).  Returns ``(head, packed16, n_ok, n_bin)``."""
     mi, ci, dc, live, n_ok, n_bin = _binned_gate(
         membership, bin_mem, q_rb, q_db, q_rb, q_db, min_count, base_min,
         NB=NB, CB=CB, BB=BB, C=C, pair_budget=pair_budget,
         aligned_db=False, skip=skip)
+    mi, ci, dc, live, hc = _walk_order(mi, ci, dc, live, perm, C)
     return _chain_pack_tail(mi, ci, dc, live, q_seeds, q_pos, base_min,
                             q_len, t_seeds, t_pos, k=k, top_k=top_k,
-                            lean=lean) + (n_ok, n_bin)
+                            lean=lean, hc=hc) + (n_ok, n_bin)
 
 
 def _walk_back(start, bp, qi, tj, chain_len: int):
@@ -640,6 +667,27 @@ def _overlap_fetch(res) -> HostCopy:
     return HostCopy([torch.stack(res[3:6])])
 
 
+def _straddled(head, packed, pieces) -> int:
+    """Order in place the rows of each query row that a piece boundary
+    splits: ``head``/``packed`` join the runs' live rows ``pieces`` (their
+    heads), each already in (query row, index chunk) order, and the gate
+    cuts its pieces in query-row order, so only the rows of a query row
+    that ends one piece and starts the next are out of order, by chunk.
+    Returns the count of rows ordered here."""
+    rows = head[:, 0]
+    # a query row may span more than two pieces
+    split = {int(b[0, 0]) for a, b in zip(pieces, pieces[1:])
+             if len(a) and len(b) and a[-1, 0] == b[0, 0]}
+    n = 0
+    for r in split:
+        lo, hi = np.searchsorted(rows, [r, r + 1])
+        order = lo + np.argsort(head[lo:hi, 1], kind="stable")
+        head[lo:hi] = head[order]
+        packed[lo:hi] = packed[order]
+        n += int(hi - lo)
+    return n
+
+
 class MapEngine:
     """Resident device index + one-dispatch query pipelines for the mapper
     (flat or binned gate) and the overlapper.  ``routes`` counts the
@@ -647,9 +695,13 @@ class MapEngine:
     ``(n_bin, BB)`` at the width their collect ended on, ``reruns`` the
     re-runs at collect by cause (``pair_budget``, ``BB``, both).  The
     class's ``gate_pairs`` sums, over every engine, the passing count each
-    map block's collect ends on (the counter ``map.gate.pairs``)."""
+    map block's collect ends on (the counter ``map.gate.pairs``), and
+    ``host_sorted`` the pairs of the query rows that a binned block's piece
+    boundaries split, which its collect orders on the host (the counter
+    ``map.collect.host_sorted``)."""
 
     gate_pairs = 0
+    host_sorted = 0
     _pairs_lock = threading.Lock()
 
     STATE_KEYS = ("membership", "t_seeds", "t_pos", "usable_dev",
@@ -657,7 +709,7 @@ class MapEngine:
     BINNED_STATE_KEYS = ("bin_mem1", "bin_mem2")
     # the resident tensors a data shard holds a replica of
     DEVICE_KEYS = ("membership", "t_seeds", "t_pos", "usable_dev",
-                   "bin_mem1", "bin_mem2")
+                   "bin_mem1", "bin_mem2", "perm_dev")
 
     def __init__(self, index, k: int, nq: int = 64, nt: int = 320,
                  mesh=None, hit_fraction: float = 0.25,
@@ -711,6 +763,7 @@ class MapEngine:
                 np.fromiter((s.offset for s in index.sequences), np.int64,
                             C), kind="stable").astype(np.int32)
             self._perm = order         # engine position -> index chunk id
+            self.perm_dev = torch.from_numpy(order).to(self.device)
             self._pos_of = np.empty(C, np.int32)
             self._pos_of[order] = np.arange(C, dtype=np.int32)
         derive_mem = (not self.seed_sharded
@@ -1122,26 +1175,29 @@ class MapEngine:
         elif route == "_fused_map_bc":
             tables["bin_mem"] = tabs["bin_mem2"]
         if self._binned:
+            tables["perm"] = tabs["perm_dev"]
             statics.update(NB=self._NB, CB=self._CB, BB=BB, C=self.C)
         fn = {"_fused_map_d": _fused_map_d, "_fused_map_c": _fused_map_c,
               "_fused_map_bd": _fused_map_bd,
               "_fused_map_bc": _fused_map_bc}[route]
         return captured.run(fn, inputs, tables, **statics)
 
-    def _collect_block(self, p: Pending):
-        """A map block's host rows, exact: while its passing count exceeds
-        the budget or (binned) its most passing bins exceed ``BB``, re-run
-        it with the budget grown 4x until it holds the count and ``BB`` at
-        ``_bb_final``, the width the JAX engine's doubling ends on (the
-        passing bins do not depend on ``BB``).  The budget grows no
-        further than ``pair_cap``: runs at that budget step over the
-        passing pairs (``skip``) until they pass the count, so the card's
-        memory bounds no block.  Each run after the first is a re-run, by
-        cause.  Returns ``(head, packed)`` of the live rows and the
-        passing count."""
+    def _runs(self, p: Pending):
+        """The runs that make a map block exact: while its passing count
+        exceeds the budget or (binned) its most passing bins exceed
+        ``BB``, re-run it with the budget grown 4x until it holds the count
+        and ``BB`` at ``_bb_final``, the width the JAX engine's doubling
+        ends on (the passing bins do not depend on ``BB``).  The budget
+        grows no further than ``pair_cap``: runs at that budget step over
+        the passing pairs (``skip``) until they pass the count, so the
+        card's memory bounds no block.  Each run after the first is a
+        re-run, by cause.  Returns the kept runs' ``(head, packed,
+        live)``, ``live`` the run's count of live rows, which the gate
+        compacts first (``min(budget, n_ok - skip)``), and the passing
+        count."""
         cnt, head, packed = p.host.wait()
         budget, BB = p.args
-        heads, packs, skip = [], [], 0
+        runs, skip = [], 0
         while True:
             n_ok = int(cnt[0])
             n_bin = int(cnt[1]) if self._binned else 0
@@ -1154,8 +1210,7 @@ class MapEngine:
                 while n_ok > budget and budget < self.pair_cap:
                     budget = min(budget * 4, self.pair_cap)
             else:
-                heads.append(head)
-                packs.append(packed)
+                runs.append((head, packed, min(budget, n_ok - skip)))
                 skip += budget
                 if skip >= n_ok:
                     break
@@ -1163,14 +1218,24 @@ class MapEngine:
             self.reruns[cause] += 1
             with span("map.rerun"):
                 cnt, head, packed = p.rerun(budget, BB, skip)
-        if len(heads) > 1:
-            head, packed = np.concatenate(heads), np.concatenate(packs)
         if self._binned:
             self.bins[(n_bin, BB)] += 1
+        return runs, n_ok
+
+    def _collect_block(self, p: Pending):
+        """A map block's host rows, exact (``_runs``): each run's live rows
+        joined, summaries widened to int32, in the walk's order
+        (``_straddled``).  Returns ``(head, packed)`` and the passing
+        count."""
+        runs, n_ok = self._runs(p)
+        heads = [h[:n] for h, _, n in runs]
+        head = heads[0] if len(heads) == 1 else np.concatenate(heads)
+        packed = np.concatenate([q[:n] for _, q, n in runs], dtype=np.int32)
+        n_sorted = _straddled(head, packed, heads) if self._binned else 0
         with MapEngine._pairs_lock:
             MapEngine.gate_pairs += n_ok
-        live = head[:, 0] >= 0
-        return head[live], packed[live].astype(np.int32), n_ok
+            MapEngine.host_sorted += n_sorted
+        return head, packed, n_ok
 
     @traced("map.collect")
     def collect_arrays_many(self, futs_list):
@@ -1178,9 +1243,8 @@ class MapEngine:
         int32 (query row, chunk, distinct count), summary [N, W] int32)``
         ordered query-major / chunk-ascending (the reference's candidate
         walk order), or None for an empty dispatch.  Each block is made
-        exact first (``_collect_block``); its query rows are offset by its
-        first row; binned engines' chunk ids are translated from engine to
-        index order and the rows sorted again."""
+        exact first (``_collect_block``), its rows in that order already;
+        its query rows are offset by its first row."""
         out = []
         for _, blocks, shape in futs_list:
             if blocks is None:
@@ -1191,10 +1255,6 @@ class MapEngine:
                 head, packed, n_ok = self._collect_block(p)
                 counts.append(n_ok)
                 head[:, 0] += p.lo
-                if self._perm is not None:
-                    head[:, 1] = self._perm[head[:, 1]]
-                    order = np.lexsort((head[:, 1], head[:, 0]))
-                    head, packed = head[order], packed[order]
                 parts[p.lo] = (head, packed)
             self._seen[shape] = max(self._seen.get(shape, 0), *counts)
             parts = self._grid.gather(parts)
@@ -1406,3 +1466,4 @@ class MapEngine:
 
 
 metrics.counter("map.gate.pairs", lambda: MapEngine.gate_pairs)
+metrics.counter("map.collect.host_sorted", lambda: MapEngine.host_sorted)

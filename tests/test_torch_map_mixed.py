@@ -1,12 +1,17 @@
 """The mixed map cells (``benchmark/kinds/map_mixed.py``) on the CPU at
 small sizes: the planted repeat families, the port judged by the cells'
 plain reference on both traffics, off-target reads, the program counter
-``map.gate.pairs``, the five readers of a traced run, and
+``map.gate.pairs`` and ``map.collect.host_sorted``, the six readers of a
+traced run, the card-ordered collect of binned blocks against the host
+ordering it replaced, and
 ``Mapper.map_batch`` on a planted genome against the JAX package, which
 decides whether a reading the reference does not expect is the
 algorithm's or the port's.
 """
 import json
+import sys
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -37,7 +42,7 @@ SMALL = {REPEATS: ({"genome_bases": 300_000},
                      {"batch_reads": 32, "batches": 2})}
 SEED = 2**31 + 19
 NEW = ("gate_pairs.map", "rerun_ms.map", "open_reads.map", "next_ms.map",
-       "split_ms.map")
+       "split_ms.map", "host_sorted.map")
 
 
 def small(name):
@@ -163,6 +168,8 @@ def test_traced_run_is_correct_and_reads_the_new_metrics(name):
     assert set(NEW) <= set(got)
     assert got["gate_pairs.map"]["value"] > 0
     assert got["rerun_ms.map"]["value"] >= 0
+    # at test size every block is one piece: nothing to order on the host
+    assert got["host_sorted.map"]["value"] == 0
     if name == OFFTARGET:
         # most long reads have no end pair: the later stages run
         assert got["open_reads.map"]["value"] >= 0.5 * 32
@@ -253,6 +260,25 @@ def test_map_batch_matches_jax_on_a_planted_genome(planted):
     assert compared >= 8 and plain_differ >= 1
 
 
+def _toy_binned(mapper, values, monkeypatch):
+    """The planted genome's mapper on the binned gate at toy scale."""
+    monkeypatch.setattr(map_engine, "_BINNED_MIN_C", 16)
+    monkeypatch.setattr(map_engine, "_BINNED_CB", 2)
+    return Mapper(mapper.reference, False, mapper.k, values, 40, 1000,
+                  10000, device="cpu")
+
+
+def _capped_windows(g, eng):
+    """48 1 kb windows of the planted genome, packed, and their minimum
+    chain lengths."""
+    rng = generate.rng_for(SEED, "capped")
+    drawn = generate.sample_reads(rng, g, 48, 1000, 1001, 0.08)
+    windows = [Sequence.from_string(s.tobytes().decode(), id=i, name=f"w{i}")
+               for i, s in enumerate(drawn.seqs)]
+    packed = eng.pack_query_windows(windows)
+    return packed, np.maximum(5, packed[6] // 5).astype(np.int32)
+
+
 @pytest.mark.parametrize("gate", ["flat", "binned"])
 def test_capped_collect_gives_the_uncapped_rows(planted, monkeypatch, gate):
     """A block whose passing count outgrows the pair cap re-runs in pieces
@@ -261,18 +287,10 @@ def test_capped_collect_gives_the_uncapped_rows(planted, monkeypatch, gate):
     widens the bins it selects."""
     g, _, mapper, values = planted
     if gate == "binned":
-        monkeypatch.setattr(map_engine, "_BINNED_MIN_C", 16)
-        monkeypatch.setattr(map_engine, "_BINNED_CB", 2)
-        mapper = Mapper(mapper.reference, False, mapper.k, values, 40, 1000,
-                        10000, device="cpu")
+        mapper = _toy_binned(mapper, values, monkeypatch)
     eng = mapper.engine
     assert eng._binned == (gate == "binned")
-    rng = generate.rng_for(SEED, "capped")
-    drawn = generate.sample_reads(rng, g, 48, 1000, 1001, 0.08)
-    windows = [Sequence.from_string(s.tobytes().decode(), id=i, name=f"w{i}")
-               for i, s in enumerate(drawn.seqs)]
-    packed = eng.pack_query_windows(windows)
-    base_min = np.maximum(5, packed[6] // 5).astype(np.int32)
+    packed, base_min = _capped_windows(g, eng)
 
     def collected():
         eng.reruns.clear()
@@ -287,3 +305,117 @@ def test_capped_collect_gives_the_uncapped_rows(planted, monkeypatch, gate):
     assert reruns.get("pair_budget", 0) >= 2
     if gate == "binned":
         assert any("BB" in c for c in reruns)
+
+
+def _host_ordered_rows(eng, blocks):
+    """The rows of a dispatch whose runs left the card in the gate's order
+    with engine chunk ids, ordered as the collect did before the card
+    ordered them: each block's runs joined whole, dead slots masked,
+    summaries widened, binned chunk ids translated to the index's and the
+    rows lexsorted."""
+    parts = []
+    for p in blocks:
+        runs, _ = eng._runs(p)
+        head = np.concatenate([h for h, _, _ in runs])
+        packed = np.concatenate([q for _, q, _ in runs])
+        live = head[:, 0] >= 0
+        head, packed = head[live], packed[live].astype(np.int32)
+        head[:, 0] += p.lo
+        if eng._perm is not None:
+            head[:, 1] = eng._perm[head[:, 1]]
+            order = np.lexsort((head[:, 1], head[:, 0]))
+            head, packed = head[order], packed[order]
+        parts.append((head, packed))
+    return tuple(np.concatenate([p[i] for p in parts]) for i in range(2))
+
+
+@pytest.mark.parametrize("pieces", ["one", "capped"])
+@pytest.mark.parametrize("route", ["bd", "bc", "d", "c"])
+def test_card_ordered_collect_gives_the_host_ordered_rows(
+        planted, monkeypatch, route, pieces):
+    """A dispatch's collected rows, with the card putting binned runs in
+    the walk's order and the collect taking each run's live rows by
+    count, are those the host ordering gives from the same dispatch, row
+    for row: on both binned routes and, for the count's slice, both flat
+    ones; in one piece and in pieces of 64 pairs, whose boundaries split
+    query rows on the binned gate (ordered on the host, and counted)."""
+    g, _, mapper, values = planted
+    if route.startswith("b"):
+        mapper = _toy_binned(mapper, values, monkeypatch)
+    eng = mapper.engine
+    assert eng._binned == route.startswith("b")
+    packed, base_min = _capped_windows(g, eng)
+    if route.endswith("c"):
+        packed = packed[:6]          # no num_seeds: buckets shipped
+    if pieces == "capped":
+        monkeypatch.setattr(eng, "pair_cap", 64)
+    eng.routes.clear()
+    before = MapEngine.host_sorted
+    head, rows = eng.collect_arrays_many(
+        [eng.dispatch_packed(packed, base_min, pair_budget=16)])[0]
+    host_sorted = MapEngine.host_sorted - before
+    assert dict(eng.routes) == {"_fused_map_" + route: 1}
+    # the card as it was: the gate's order, engine chunk ids
+    monkeypatch.setattr(map_engine, "_walk_order",
+                        lambda mi, ci, dc, live, perm, C:
+                        (mi, ci, dc, live, ci))
+    _, blocks, _ = eng.dispatch_packed(packed, base_min, pair_budget=16)
+    want_head, want_rows = _host_ordered_rows(eng, blocks)
+    assert len(head) > 3 * 64
+    assert head.dtype == want_head.dtype and rows.dtype == want_rows.dtype
+    np.testing.assert_array_equal(head, want_head)
+    np.testing.assert_array_equal(rows, want_rows)
+    if route.startswith("b") and pieces == "capped":
+        assert 0 < host_sorted < len(head)
+    else:
+        assert host_sorted == 0
+
+
+def test_host_sorted_counter_sums_every_thread(planted, monkeypatch):
+    """``map.collect.host_sorted`` grows by the rows every collect orders
+    on the host: on both shard threads of ``Mapper.map_batch``, and with
+    more collecting threads than cores at a short switch interval (the
+    runs precomputed, so the threads contend on the count): no update is
+    lost."""
+    g, _, mapper, values = planted
+    mapper = _toy_binned(mapper, values, monkeypatch)
+    eng = mapper.engine
+    monkeypatch.setattr(eng, "pair_cap", 64)
+    monkeypatch.setattr(eng, "_map_budget", lambda route, rows: 16)
+    monkeypatch.setattr(Mapper, "_SHARD_MIN", 8)
+    ordered = []
+    straddled = map_engine._straddled
+
+    def recorded(*args):
+        n = straddled(*args)
+        ordered.append((threading.get_ident(), n))
+        return n
+    monkeypatch.setattr(map_engine, "_straddled", recorded)
+    rng = generate.rng_for(SEED, "shards")
+    drawn = generate.sample_reads(rng, g, 16, 3000, 4000, 0.08)
+    reads = [Sequence.from_string(s.tobytes().decode(), id=i, name=f"r{i}")
+             for i, s in enumerate(drawn.seqs)]
+    before = metrics.counters()["map.collect.host_sorted"]
+    mapper.map_batch(reads)
+    grown = metrics.counters()["map.collect.host_sorted"] - before
+    assert len({t for t, n in ordered if n}) == 2
+    assert grown == sum(n for _, n in ordered)
+
+    packed, base_min = _capped_windows(g, eng)
+    _, (p,), _ = eng.dispatch_packed(packed, base_min, pair_budget=16)
+    runs = eng._runs(p)
+    monkeypatch.setattr(eng, "_runs", lambda p: runs)
+    ordered.clear()
+    before = metrics.counters()["map.collect.host_sorted"]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(max_workers=32) as tp:
+            futs = [tp.submit(eng._collect_block, p) for _ in range(256)]
+            sizes = {len(f.result(timeout=60)[0]) for f in futs}
+    finally:
+        sys.setswitchinterval(interval)
+    grown = metrics.counters()["map.collect.host_sorted"] - before
+    (n,) = {n for _, n in ordered}
+    assert len(sizes) == 1 and len(ordered) == 256 and n > 0
+    assert grown == 256 * n
