@@ -990,12 +990,13 @@ def phase_graphs(name: str, dispatch, collect):
 def map_dispatch_case(name: str, mapper, reads):
     """``phase_dispatch`` of one map dispatch: the end windows of the first
     2048 reads (4096 windows, the mapper's dispatch size)."""
+    from downpore_tpu_torch.ops.map_engine import WindowRows
     eng = mapper.engine
     es = mapper.edge_size
-    wins = []
-    for r in reads[:2048]:
-        wins += [r.subsequence(0, es), r.subsequence(len(r) - es, len(r))]
-    packed = eng.pack_query_windows(wins)
+    ends = [r for r in reads[:2048] for _ in (0, 1)]
+    starts = [(len(r) - es) * (i % 2) for i, r in enumerate(ends)]
+    packed = eng.pack_query_windows(
+        WindowRows.cut(ends, starts, np.add(starts, es)))
     base_min = np.maximum(5, packed[6] // 5).astype(np.int32)
     dispatch = lambda b: eng.dispatch_packed(packed, base_min,
                                              pair_budget=b or 0)

@@ -142,28 +142,19 @@ class Mapper:
 
     # -- batched performMapping ----------------------------------------
     @traced("map.stage")
-    def perform_mapping_batch(self, queries: List[Sequence]) -> List[List[Mapping]]:
+    def perform_mapping_batch(self, rows: WindowRows) -> tuple:
         """The reference's performMapping (mapping.go:489-611) over a batch
         of query windows: retrieval matmul, popcount gate, chain DP,
-        adaptive thresholds, duplicate removal.
+        adaptive thresholds.  Returns every window's accepted mappings as
+        arrays ``(window, start, end, q_offset, q_inset, rc, ids)``,
+        window-major in the walk's order, not yet deduplicated
+        (``_mappings`` makes them objects).
 
         Feature extraction (seeds, run buckets) runs batch-vectorized in
-        ``MapEngine.pack_query_windows`` — one numpy pass over all
-        windows + RC twins instead of per-query ``new_seed_sequence``
-        loops (which were the single largest map cost in round-1
-        profiles)."""
-        results: List[List[Mapping]] = [[] for _ in queries]
-        for lo, sub, num_seeds, coll in self._chunks(queries):
-            self._walk_candidates(sub, num_seeds, coll, results, lo)
-        return results
-
-    @traced("map.stage")
-    def _map_window_rows(self, rows: WindowRows) -> tuple:
-        """``perform_mapping_batch`` over ``WindowRows``, with the native
-        library: every window's accepted mappings as arrays ``(window,
-        start, end, q_offset, q_inset, rc, ids)``, window-major in the
-        walk's order, not yet deduplicated."""
-        parts = [self._walk_candidates(sub, num_seeds, coll, None, lo)
+        ``MapEngine.pack_query_windows`` — one pass over all windows + RC
+        twins instead of per-query ``new_seed_sequence`` loops (which were
+        the single largest map cost in round-1 profiles)."""
+        parts = [self._walk_candidates(sub, num_seeds, coll, lo)
                  for lo, sub, num_seeds, coll in self._chunks(rows)]
         parts = [p for p in parts if p is not None]
         if not parts:
@@ -171,7 +162,7 @@ class Mapper:
                          (np.int64,) * 5 + (bool, np.int64))
         return tuple(np.concatenate(c) for c in zip(*parts))
 
-    def _chunks(self, queries):
+    def _chunks(self, queries: WindowRows):
         """Pack, dispatch and collect ``queries`` in chunks: ``(lo, sub,
         num_seeds, collected)`` for each."""
         if not len(queries):
@@ -193,13 +184,13 @@ class Mapper:
                 for (lo, sub, num_seeds, _), coll in zip(inflight, colls)]
 
     @traced("map.walk")
-    def _walk_candidates(self, queries, num_seeds, coll, results,
+    def _walk_candidates(self, rows: WindowRows, num_seeds, coll,
                          base: int):
         """Adaptive-threshold candidate walk for one packed chunk
-        (ref: mapping.go:494-589).  ``results[base + qi]`` receives each
-        query's mappings; with ``results`` None (``WindowRows``, native
-        walk) the accepted mappings are returned as arrays instead, their
-        window ``base + qi``.  The native walk runs when the host library
+        (ref: mapping.go:494-589): the accepted mappings as arrays
+        ``(window, start, end, q_offset, q_inset, rc, ids)``, window
+        ``base + qi``, in the walk's order; None for a chunk with no
+        collected rows.  The native walk runs when the host library
         loaded; its pure-Python twin otherwise.
 
         The walk reads the summaries and the 2/3-coverage rule of every
@@ -211,111 +202,64 @@ class Mapper:
         start/end, query offset/inset) is computed for the accepted chains
         alone: a repeat-rich genome's batch holds millions of pairs and
         accepts a few per query."""
-        if coll is None:
-            return
+        if coll is None or coll[0].shape[0] == 0:
+            return None
         head, packed = coll
-        N = head.shape[0]
-        if N == 0:
-            return
         k = self.k
         K = 4
         s = unpack_summary(packed, K, lean=self.engine.lean)
         mi = head[:, 0]
-        nq = len(queries)
+        nq = len(rows)
         qi_row = mi >> 1
-        if isinstance(queries, WindowRows):
-            qlen, qoff, qins = queries.lens, queries.offset, queries.inset
-        else:
-            qlen = np.fromiter((len(q) for q in queries), np.int64, nq)
-            qoff = np.fromiter((q.offset for q in queries), np.int64, nq)
-            qins = np.fromiter((q.inset for q in queries), np.int64, nq)
+        qlen, qoff, qins = rows.lens, rows.offset, rows.inset
         sqp, stp = s["top_sqp"], s["top_stp"]
         eqp, etp = s["top_eqp"], s["top_etp"]
         ql = qlen[qi_row].astype(np.int32)[:, None]
         ok23 = (sqp + (ql - eqp - k)) <= (ql * 2) // 3
         # rows are sorted by mi (query-major compaction order)
-        bounds = np.searchsorted(mi, np.arange(2 * nq + 1))
-
-        def geometry(b, j):
-            """(start, end, q_offset, q_inset) of chain ``j`` of rows
-            ``b`` (index arrays that broadcast)."""
-            eng = self.engine
-            ci = head[b, 1]
-            qi = qi_row[b]
-            is_rc = (mi[b] & 1).astype(bool)
-            # RC rows swap offset/inset (Sequence.reverse_complement)
-            moff = np.where(is_rc, qins[qi], qoff[qi])
-            mins_ = np.where(is_rc, qoff[qi], qins[qi])
-            ref_len = len(self.reference)
-            start = eng.chunk_off[ci] + stp[b, j]
-            end = ref_len - eng.chunk_inset[ci] \
-                - (eng.chunk_len[ci] - etp[b, j] - k)
-            if self.circular:
-                start = np.where(start > ref_len, start - ref_len, start)
-            qil = qlen[qi] - eqp[b, j] - k
-            sq = sqp[b, j]
-            return (start, end, np.where(is_rc, qil + mins_, sq + moff),
-                    np.where(is_rc, sq + moff, qil + mins_))
-
-        acc = native.walk_candidates(
-            bounds, num_seeds, nq, np.ascontiguousarray(head[:, 2]),
-            s["best"], s["top_valid"], s["top_len"], s["top_cov_t"],
-            eqp, etp, sqp, stp, ok23, K)
+        walk = (np.searchsorted(mi, np.arange(2 * nq + 1)), num_seeds, nq,
+                np.ascontiguousarray(head[:, 2]), s["best"], s["top_valid"],
+                s["top_len"], s["top_cov_t"], eqp, etp, sqp, stp, ok23, K)
+        acc = native.walk_candidates(*walk)
         if acc is None:
-            start, end, q_offset, q_inset = geometry(
-                np.arange(N)[:, None], np.arange(K)[None, :])
-            self._walk_candidates_py(queries, num_seeds, s, head, bounds,
-                                     start, end, q_offset, q_inset, ok23,
-                                     eqp, etp, sqp, stp, results, base, K)
-            return
-        acc_qi, acc_b, acc_j, acc_rc = acc
-        rows = (acc_qi.astype(np.int64) + base,
-                *geometry(acc_b, acc_j), acc_rc,
-                s["top_cov_t"][acc_b, acc_j])
-        if results is None:
-            return rows
-        self._emit_accepted(queries, rows, results, base)
+            acc = self._walk_candidates_py(*walk)
+        acc_qi, b, j, is_rc = acc
+        eng = self.engine
+        ci = head[b, 1]
+        qi = qi_row[b]
+        # RC rows swap offset/inset (Sequence.reverse_complement)
+        moff = np.where(is_rc, qins[qi], qoff[qi])
+        mins_ = np.where(is_rc, qoff[qi], qins[qi])
+        ref_len = len(self.reference)
+        start = eng.chunk_off[ci] + stp[b, j]
+        end = ref_len - eng.chunk_inset[ci] \
+            - (eng.chunk_len[ci] - etp[b, j] - k)
+        if self.circular:
+            start = np.where(start > ref_len, start - ref_len, start)
+        qil = qlen[qi] - eqp[b, j] - k
+        sq = sqp[b, j]
+        return (acc_qi.astype(np.int64) + base, start, end,
+                np.where(is_rc, qil + mins_, sq + moff),
+                np.where(is_rc, sq + moff, qil + mins_), is_rc,
+                s["top_cov_t"][b, j])
 
-    def _emit_accepted(self, queries, rows, results, base: int):
-        """Build Mapping objects from the native walk's accepted rows
-        (emitted in the reference walk order, query-major)."""
-        n = rows[0].shape[0]
-        if n == 0:
-            return
-        qis, starts, ends, qos, qns, rcs, ids = (a.tolist() for a in rows)
-        lo = 0
-        while lo < n:
-            hi = lo
-            qi = qis[lo]
-            while hi < n and qis[hi] == qi:
-                hi += 1
-            query = queries[qi - base]
-            res = [Mapping(query, starts[i], ends[i], qos[i], qns[i],
-                           rcs[i], ids[i]) for i in range(lo, hi)]
-            results[qi] = _dedup_by_position(res)
-            lo = hi
-
-    def _walk_candidates_py(self, queries, num_seeds, s, head, bounds,
-                            start, end, q_offset, q_inset, ok23,
-                            eqp, etp, sqp, stp, results, base: int,
-                            K: int):
-        """Pure-Python twin of the native walk (fallback + parity
-        oracle)."""
-        nq = len(queries)
-        dc_l = head[:, 2].tolist()
-        best_l = s["best"].tolist()
-        tv_l = s["top_valid"].tolist()
-        tl_l = s["top_len"].tolist()
-        ct_l = s["top_cov_t"].tolist()
-        eq_l = eqp.tolist()
-        et_l = etp.tolist()
-        sq_l = sqp.tolist()
-        st_l = stp.tolist()
-        start_l = start.tolist()
-        end_l = end.tolist()
-        qo_l = q_offset.tolist()
-        qn_l = q_inset.tolist()
+    @staticmethod
+    def _walk_candidates_py(bounds, num_seeds, nq: int, dc, best, tv, tl,
+                            ct, eq, et, sq, st, ok23, K: int):
+        """Pure-Python twin of ``native.walk_candidates``, on its arguments
+        and with its accepted ``(qi, b, j, rc)`` arrays: the route without
+        the native library, and the parity oracle."""
+        dc_l = dc.tolist()
+        best_l = best.tolist()
+        tv_l = tv.tolist()
+        tl_l = tl.tolist()
+        ct_l = ct.tolist()
+        eq_l = eq.tolist()
+        et_l = et.tolist()
+        sq_l = sq.tolist()
+        st_l = st.tolist()
         ok_l = ok23.tolist()
+        acc = []
         for qi in range(nq):
             lo_f, hi_f = bounds[2 * qi], bounds[2 * qi + 1]
             lo_r, hi_r = bounds[2 * qi + 1], bounds[2 * qi + 2]
@@ -323,8 +267,6 @@ class Mapper:
                 continue
             min_matches = max(5, int(num_seeds[2 * qi]) // 5)
             min_rc = max(5, int(num_seeds[2 * qi + 1]) // 5)
-            res: List[Mapping] = []
-            query = queries[qi]
             for lo, hi, rc in ((lo_f, hi_f, False), (lo_r, hi_r, True)):
                 for b in range(lo, hi):
                     cur_min = min_rc if rc else min_matches
@@ -349,15 +291,32 @@ class Mapper:
                     for stat, j in starts.values():
                         if not okb[j]:
                             continue
-                        res.append(Mapping(query, start_l[b][j],
-                                           end_l[b][j], qo_l[b][j],
-                                           qn_l[b][j], rc, ctb[j]))
+                        acc.append((qi, b, j, rc))
                         limit = (stat[0] * 4) // 5
                         if not rc and limit > min_matches:
                             min_matches = limit
                         if limit > min_rc:
                             min_rc = limit
-            results[base + qi] = _dedup_by_position(res)
+        a = np.array(acc, np.int32).reshape(-1, 4)
+        return a[:, 0], a[:, 1], a[:, 2], a[:, 3].astype(bool)
+
+    def _map_windows(self, reads, starts, ends) -> List[List[Mapping]]:
+        """Windows ``[starts[w], ends[w])`` of ``reads[w]`` mapped: each
+        window's deduplicated mappings, their query the read."""
+        rows = WindowRows.cut(reads, starts, ends)
+        return _mappings(reads, self.perform_mapping_batch(rows), len(rows))
+
+    def _map_cuts(self, reads, cuts) -> dict:
+        """Windows ``(i, tag, start, end)`` of ``reads`` mapped: ``{i:
+        {tag: mappings}}``, each window's mappings deduplicated and its
+        dominated ones dropped."""
+        idx, tags, starts, ends = zip(*cuts) if cuts else ((),) * 4
+        maps = self._map_windows([reads[i] for i in idx], starts, ends)
+        out = {}
+        for i, tag, ms in zip(idx, tags, maps):
+            out.setdefault(i, {})[tag] = _remove_dominated(ms, ms,
+                                                           len(reads[i]))
+        return out
 
     # -- pairing / consistency ------------------------------------------
     def is_consistent(self, left: Mapping, right: Mapping) -> bool:
@@ -445,23 +404,15 @@ class Mapper:
 
         short_idx = [i for i, r in enumerate(reads) if len(r) <= 2 * es]
         long_idx = [i for i, r in enumerate(reads) if len(r) > 2 * es]
-        # short reads: one query each
+        # short reads: one window each, the whole read (its end clipped)
         with span("map.short"):
-            short_maps = self.perform_mapping_batch(
-                [reads[i] for i in short_idx])
-            for i, ms in zip(short_idx, short_maps):
-                ms = _remove_dominated(ms, ms, len(reads[i]))
-                for m in ms:
-                    m.query = reads[i]
-                results[i] = ms
+            shorts = [reads[i] for i in short_idx]
+            for i, ms in zip(short_idx, self._map_windows(shorts, 0, 2 * es)):
+                results[i] = _remove_dominated(ms, ms, len(reads[i]))
 
-        # long reads stage 1: both ends, in arrays where the native
-        # library loaded
+        # long reads stage 1: both ends
         with span("map.ends"):
-            if native.load() is not None:
-                states = self._ends_native(reads, long_idx, results)
-            else:
-                states = self._ends_py(reads, long_idx, results)
+            states = self._map_ends(reads, long_idx, results)
 
         # stage 2: mapNext (two rounds of stepping inward), batched
         with span("map.next"):
@@ -472,25 +423,31 @@ class Mapper:
             self._split_stage(reads, states, results)
         return [r if r is not None else [] for r in results]
 
-    def _ends_py(self, reads, long_idx, results) -> dict:
-        """The ends phase on objects: each long read's two end windows
-        mapped, each end's dominated mappings dropped, the ends paired.
-        A read with pairs, or under 3 * ``edge_size``, gets its results;
-        the rest are returned open, ``{i: (open_a, open_b)}``.  The route
-        without the native library, and the twin ``_ends_native`` is held
-        to."""
+    def _map_ends(self, reads, long_idx, results) -> dict:
+        """The ends phase: each long read's two end windows mapped, each
+        end's dominated mappings dropped, the ends paired.  A read with
+        pairs, or under 3 * ``edge_size``, gets its results; the rest are
+        returned open, ``{i: (open_a, open_b)}``.  Pairing takes one native
+        call on the walk's arrays (``_pair_ends_native``) where the library
+        loaded, and runs on objects (``_pair_ends_py``) where not."""
+        if not long_idx:
+            return {}
         es = self.edge_size
-        subqs = []
-        for i in long_idx:
-            r = reads[i]
-            subqs.append(r.subsequence(0, es))
-            subqs.append(r.subsequence(len(r) - es, len(r)))
+        ends = [reads[i] for i in long_idx for _ in (0, 1)]
+        lens = np.fromiter(map(len, ends), np.int64, len(ends))
+        starts = np.where(np.arange(len(ends)) % 2, lens - es, 0)
+        accepted = self.perform_mapping_batch(
+            WindowRows.cut(ends, starts, starts + es))
+        if native.load() is not None:
+            return self._pair_ends_native(reads, long_idx, accepted, results)
         return self._pair_ends_py(reads, long_idx,
-                                  self.perform_mapping_batch(subqs), results)
+                                  _mappings(ends, accepted, len(ends)),
+                                  results)
 
     def _pair_ends_py(self, reads, long_idx, end_maps, results) -> dict:
-        """``_ends_py`` after the walk: ``end_maps[2 * t]`` and
-        ``[2 * t + 1]`` are long read t's deduplicated end mappings."""
+        """``_map_ends`` after the walk, on objects: ``end_maps[2 * t]``
+        and ``[2 * t + 1]`` are long read t's deduplicated end mappings.
+        The twin ``_pair_ends_native`` is held to."""
         es = self.edge_size
         states = {}
         for idx, i in enumerate(long_idx):
@@ -499,8 +456,6 @@ class Mapper:
                                        end_maps[2 * idx], len(r))
             open_b = _remove_dominated(end_maps[2 * idx + 1],
                                        end_maps[2 * idx + 1], len(r))
-            for m in open_a + open_b:
-                m.query = r
             open_a, open_b, matched = self.match_pairs(open_a, open_b)
             if matched:
                 results[i] = matched
@@ -510,41 +465,13 @@ class Mapper:
                 states[i] = (open_a, open_b)
         return states
 
-    def _ends_native(self, reads, long_idx, results) -> dict:
-        """``_ends_py`` in arrays: the end windows as rows over the long
-        reads' codes (no subsequence), the walk's accepted rows, and one
-        native call (``native.pair_ends``, the interpreter lock released)
-        for the dedup, dominance and pairing of every read.  Mapping
-        objects are built only for a read's results and open lists."""
-        if not long_idx:
-            return {}
-        es = self.edge_size
-        n = len(long_idx)
-        longs = [reads[i] for i in long_idx]
-        lens = np.fromiter(map(len, longs), np.int64, n)
-        offset = np.fromiter((r.offset for r in longs), np.int64, n)
-        inset = np.fromiter((r.inset for r in longs), np.int64, n)
-        # windows [0, es) and [len - es, len), as Sequence.subsequence
-        # cuts them (end clipped to the read), their codes in one buffer
-        a_end = np.minimum(es, lens)
-        b_start = lens - es
-        wlen = np.stack([a_end, lens - b_start], 1).ravel()
-        parts = [None] * (2 * n)
-        parts[0::2] = [r.codes[:es] for r in longs]
-        parts[1::2] = [r.codes[len(r) - es:] for r in longs]
-        off = np.zeros(2 * n, np.int64)
-        np.cumsum(wlen[:-1], out=off[1:])
-        rows = WindowRows(
-            _joined_codes(parts, int(off[-1] + wlen[-1])), off, wlen,
-            np.stack([offset, offset + b_start], 1).ravel(),
-            np.stack([inset + lens - a_end, inset], 1).ravel())
-        return self._pair_ends_native(reads, long_idx,
-                                      self._map_window_rows(rows), results)
-
     def _pair_ends_native(self, reads, long_idx, accepted,
                           results) -> dict:
         """``_pair_ends_py`` on the walk's accepted rows (``accepted``, as
-        ``_map_window_rows`` returns them), in one native call."""
+        ``perform_mapping_batch`` returns them), in one native call
+        (``native.pair_ends``, the interpreter lock released) for the
+        dedup, dominance and pairing of every read.  Mapping objects are
+        built only for a read's results and open lists."""
         n = len(long_idx)
         longs = [reads[i] for i in long_idx]
         win, start, end, q_off, q_ins, rc, ids = accepted
@@ -574,31 +501,18 @@ class Mapper:
         es = self.edge_size
         if not states:
             return
-        # round 1 queries
-        subqs = []
-        metas = []
-        for i in list(states.keys()):
-            r = reads[i]
-            if len(r) < es * 4:
-                subqs.append(r.subsequence(es, len(r) - es))
-                metas.append((i, "mid"))
+        # round 1 windows
+        cuts = []
+        for i in states:
+            n = len(reads[i])
+            if n < es * 4:
+                cuts.append((i, "mid", es, n - es))
             else:
-                subqs.append(r.subsequence(es, es * 2))
-                metas.append((i, "a1"))
-                subqs.append(r.subsequence(len(r) - es * 2, len(r) - es))
-                metas.append((i, "b1"))
-        maps = self.perform_mapping_batch(subqs)
-        new_by_read = {}
-        for (i, tag), ms in zip(metas, maps):
-            r = reads[i]
-            ms = _remove_dominated(ms, ms, len(r))
-            for m in ms:
-                m.query = r
-            new_by_read.setdefault(i, {})[tag] = ms
+                cuts += [(i, "a1", es, es * 2), (i, "b1", n - es * 2, n - es)]
+        new_by_read = self._map_cuts(reads, cuts)
         need_round2 = []
         for i, tags in new_by_read.items():
             open_a, open_b = states[i]
-            r = reads[i]
             if "mid" in tags:
                 new_a = tags["mid"]
                 open_a2, new_a, extended = self.match_pairs(open_a, new_a)
@@ -635,23 +549,14 @@ class Mapper:
         # round 2: one more step inward
         if not need_round2:
             return
-        subqs, metas = [], []
+        cuts = []
         for i in need_round2:
-            r = reads[i]
-            if len(r) > es * 5:
-                subqs.append(r.subsequence(es * 2, es * 3))
-                metas.append((i, "a2"))
-            if len(r) > es * 6:
-                subqs.append(r.subsequence(len(r) - es * 3, len(r) - es * 2))
-                metas.append((i, "b2"))
-        maps = self.perform_mapping_batch(subqs)
-        new_by_read = {}
-        for (i, tag), ms in zip(metas, maps):
-            r = reads[i]
-            ms = _remove_dominated(ms, ms, len(r))
-            for m in ms:
-                m.query = r
-            new_by_read.setdefault(i, {})[tag] = ms
+            n = len(reads[i])
+            if n > es * 5:
+                cuts.append((i, "a2", es * 2, es * 3))
+            if n > es * 6:
+                cuts.append((i, "b2", n - es * 3, n - es * 2))
+        new_by_read = self._map_cuts(reads, cuts)
         for i in need_round2:
             open_a, open_b = states[i]
             r = reads[i]
@@ -697,7 +602,6 @@ class Mapper:
                     right = b.query_offset
             searches[i] = [(open_a, open_b, left, right)]
         while True:
-            batch = []
             metas = []
             for i, stack in searches.items():
                 if not stack:
@@ -706,21 +610,19 @@ class Mapper:
                 if right - left < es:
                     stack.pop()
                     continue
-                start = (right + left - es) // 2
-                batch.append(reads[i].subsequence(start, start + es))
-                metas.append((i, start))
-            if not batch:
+                metas.append((i, (right + left - es) // 2))
+            if not metas:
                 active = any(s for s in searches.values())
                 if not active:
                     break
                 continue
-            maps = self.perform_mapping_batch(batch)
+            starts = np.array([start for _, start in metas], np.int64)
+            maps = self._map_windows([reads[i] for i, _ in metas], starts,
+                                     starts + es)
             for (i, start), mid in zip(metas, maps):
                 stack = searches[i]
                 open_a, open_b, left, right = stack.pop()
                 r = reads[i]
-                for m in mid:
-                    m.query = r
                 new_left, new_right = left, right
                 after_a = after_b = 0
                 for mm in mid:
@@ -776,19 +678,16 @@ class Mapper:
         return self.map_batch([read])[0]
 
 
-def _joined_codes(parts: List[np.ndarray], total: int) -> np.ndarray:
-    """The code arrays ``parts`` (``total`` codes) in one uint8 buffer.
-    ``bytes.join`` copies them holding the interpreter lock throughout;
-    numpy's concatenate hands the lock back and forth part by part, which
-    two shard threads doing the same turn into a convoy.  Parts that are no
-    contiguous one-byte buffers go through numpy."""
-    try:
-        buf = b"".join(parts)
-    except (BufferError, TypeError):
-        buf = b""
-    if len(buf) == total:
-        return np.frombuffer(buf, np.uint8)
-    return np.concatenate(parts).astype(np.uint8)
+def _mappings(queries, accepted, n: int) -> List[List[Mapping]]:
+    """Each of ``n`` windows' deduplicated mappings from the walk's accepted
+    rows (``Mapper.perform_mapping_batch``'s arrays); window w's mappings
+    take ``queries[w]``, the read it was cut from, as their query."""
+    win, *cols = accepted
+    qs = [queries[w] for w in win.tolist()]
+    ms = list(map(Mapping, qs, *(c.tolist() for c in cols)))
+    stops = np.searchsorted(win, np.arange(n + 1)).tolist()
+    return [_dedup_by_position(ms[lo:hi])
+            for lo, hi in zip(stops, stops[1:])]
 
 
 def _dedup_by_position(results: List[Mapping]) -> List[Mapping]:

@@ -371,7 +371,7 @@ def pair_ends(win_bounds: np.ndarray, read_len: np.ndarray, es: int,
               q_inset: np.ndarray, rc: np.ndarray, ids: np.ndarray,
               circular: bool, ref_len: int):
     """The mapper's ends phase after the walk, every long read in one call
-    (exact twin of ``mapping.mapper.Mapper._ends_py``): read t's end
+    (exact twin of ``mapping.mapper.Mapper._pair_ends_py``): read t's end
     windows are 2t and 2t+1, window w's accepted rows in walk order at
     ``[win_bounds[w], win_bounds[w+1])``.  Returns ``(status, n_a, n_b,
     start, end, q_offset, q_inset, rc, ids)``: per read 0 matched, 1

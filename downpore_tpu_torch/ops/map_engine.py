@@ -126,12 +126,48 @@ class WindowRows:
         self.offset = offset
         self.inset = inset
 
+    @classmethod
+    def cut(cls, reads, starts, ends) -> "WindowRows":
+        """Window i is bases ``[starts[i], ends[i])`` of ``reads[i]``, its
+        end clipped to the read and its offset and inset those of
+        ``reads[i].subsequence(starts[i], ends[i])`` (0 <= start).
+        ``starts`` and ``ends`` are sequences or scalars."""
+        n = len(reads)
+        rlen = np.fromiter(map(len, reads), np.int64, n)
+        starts = np.zeros(n, np.int64) + np.asarray(starts, np.int64)
+        ends = np.minimum(np.asarray(ends, np.int64), rlen)
+        lens = np.maximum(ends - starts, 0)
+        off = np.zeros(n, np.int64)
+        np.cumsum(lens[:-1], out=off[1:])
+        parts = [r.codes[a:b] for r, a, b in
+                 zip(reads, starts.tolist(), ends.tolist())]
+        return cls(_joined_codes(parts, int(lens.sum())), off, lens,
+                   np.fromiter((r.offset for r in reads), np.int64, n)
+                   + starts,
+                   np.fromiter((r.inset for r in reads), np.int64, n)
+                   + rlen - ends)
+
     def __len__(self) -> int:
         return len(self.lens)
 
     def __getitem__(self, rows: slice) -> "WindowRows":
         return WindowRows(self.codes, self.off[rows], self.lens[rows],
                           self.offset[rows], self.inset[rows])
+
+
+def _joined_codes(parts: List[np.ndarray], total: int) -> np.ndarray:
+    """The code arrays ``parts`` (``total`` codes) in one uint8 buffer.
+    ``bytes.join`` copies them holding the interpreter lock throughout;
+    numpy's concatenate hands the lock back and forth part by part, which
+    two shard threads doing the same turn into a convoy.  Parts that are no
+    contiguous one-byte buffers go through numpy."""
+    try:
+        buf = b"".join(parts)
+    except (BufferError, TypeError):
+        buf = b""
+    if len(buf) == total:
+        return np.frombuffer(buf, np.uint8)
+    return np.concatenate(parts).astype(np.uint8)
 
 
 def _count_rows(membership, buckets):
@@ -931,12 +967,12 @@ class MapEngine:
     # up to this many seeds; beyond it num_sets undercounts, which only
     # lowers min_count (recall-safe, the chain DP is the filter)
 
-    def _pack_windows_native(self, windows, lens_b: np.ndarray):
+    def _pack_windows_native(self, rows: WindowRows):
         """One-pass native packer (native/seqscan.cpp pack_windows): same
         outputs as the numpy pipeline of ``pack_query_windows``.  None
         when the toolchain is absent."""
         from .. import native
-        if native.load() is None or not len(windows):
+        if native.load() is None or not len(rows):
             return None
         tabs = getattr(self, "_nat_tables", None)
         if tabs is None:
@@ -945,37 +981,24 @@ class MapEngine:
                     np.ascontiguousarray(self.usable, np.uint8))
             self._nat_tables = tabs
         kt, km, us = tabs
-        if isinstance(windows, WindowRows):
-            codes, off = windows.codes, windows.off
-        else:
-            off = np.zeros(len(windows), np.int64)
-            np.cumsum(lens_b[:-1], out=off[1:])
-            codes = np.empty(int(lens_b.sum()), np.uint8)
-            for i, w in enumerate(windows):
-                codes[off[i] : off[i] + lens_b[i]] = w.codes
-        return native.pack_windows(codes, off, lens_b, self.k, self.nq,
-                                   self._NQS, kt, km, us, self.num_seeds,
-                                   self.H)
+        return native.pack_windows(rows.codes, rows.off, rows.lens, self.k,
+                                   self.nq, self._NQS, kt, km, us,
+                                   self.num_seeds, self.H)
 
     @traced("map.pack")
-    def pack_query_windows(self, windows) -> tuple:
-        """Seed features of plain sequence windows (a list of sequences,
-        or ``WindowRows``, which only the native packer takes), forward
-        and reverse complement rows interleaved ([2i] = fw of window i,
-        [2i+1] = rc).
+    def pack_query_windows(self, rows: WindowRows) -> tuple:
+        """Seed features of query windows, forward and reverse complement
+        rows interleaved ([2i] = fw of window i, [2i+1] = rc).
         Returns ``(q_seeds, q_pos, q_rb, q_db, num_sets, q_len,
         num_seeds)``: the query features plus the exact per-row
         extracted-seed counts (ref: mapping/mapping.go:497-505)."""
         index = self.index
         k = self.k
         nq = self.nq
-        M = len(windows)
-        if isinstance(windows, WindowRows):
-            lens_b = windows.lens
-        else:
-            lens_b = np.array([len(w) for w in windows], np.int64)
+        M = len(rows)
+        lens_b = rows.lens
 
-        native_out = self._pack_windows_native(windows, lens_b)
+        native_out = self._pack_windows_native(rows)
         if native_out is not None:
             q_seeds, q_pos, q_rb, q_db, num_sets, num_seeds = native_out
             q_len = np.repeat(lens_b, 2).astype(np.int32)
@@ -987,10 +1010,10 @@ class MapEngine:
         # forward and RC code rows interleaved, so one rolling-kmer pass
         # covers both orientations (complement of a 2-bit code = ^3)
         codes = np.zeros((2 * M, L), np.uint8)
-        for i, w in enumerate(windows):
-            n = lens_b[i]
-            codes[2 * i, :n] = w.codes
-            codes[2 * i + 1, :n] = w.codes[::-1]
+        for i, (o, n) in enumerate(zip(rows.off, lens_b)):
+            w = rows.codes[o:o + n]
+            codes[2 * i, :n] = w
+            codes[2 * i + 1, :n] = w[::-1]
             codes[2 * i + 1, :n] ^= 3
         lens_k = np.maximum(0, lens_b - k + 1)
         km2 = np.zeros((2 * M, W), np.int32)

@@ -251,11 +251,15 @@ def map_dispatch(mapper, reads) -> None:
     span; one that only enqueues takes its launches."""
     import numpy as np
     import torch
+    from downpore_tpu_torch.ops import map_engine
     eng = mapper.engine
     es = mapper.edge_size
-    wins = []
-    for r in reads[:2048]:
-        wins += [r.subsequence(0, es), r.subsequence(len(r) - es, len(r))]
+    ends = [r for r in reads[:2048] for _ in (0, 1)]
+    starts = [(len(r) - es) * (i % 2) for i, r in enumerate(ends)]
+    if hasattr(map_engine.WindowRows, "cut"):
+        wins = map_engine.WindowRows.cut(ends, starts, np.add(starts, es))
+    else:   # a tree whose pack takes a list of subsequences
+        wins = [r.subsequence(s, s + es) for r, s in zip(ends, starts)]
     packed = eng.pack_query_windows(wins)
     base_min = np.maximum(5, packed[6] // 5).astype(np.int32)
     eng.collect_arrays_many([eng.dispatch_packed(packed, base_min)])

@@ -108,8 +108,9 @@ def test_binned_bb_escalation_matches_jax(monkeypatch, escalation_genome):
 
 def dispatch_pair(jm, tm, windows, shipped):
     out = []
-    for eng in (jm.engine, tm.engine):
-        packed = eng.pack_query_windows(windows)
+    torch_rows = tme.WindowRows.cut(windows, 0, [len(w) for w in windows])
+    for eng, wins in ((jm.engine, windows), (tm.engine, torch_rows)):
+        packed = eng.pack_query_windows(wins)
         base_min = np.maximum(5, packed[6] // 5).astype(np.int32)
         if shipped:
             packed = packed[:6]          # no num_seeds: buckets shipped

@@ -176,6 +176,14 @@ def test_map_batch_on_card_matches_cpu(cuda_device):
     assert sum(1 for ms in got if ms) >= 22
 
 
+def genome_windows(genome, starts, width=1000):
+    """Windows ``[p, p + width)`` of ``genome`` at ``starts``, in the map
+    engine's form."""
+    from downpore_tpu_torch.ops.map_engine import WindowRows
+    return WindowRows.cut([genome] * len(starts), starts,
+                          np.add(starts, width))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shipped", [False, True], ids=["bd", "bc"])
 def test_binned_dispatch_on_card_matches_cpu(cuda_device, monkeypatch,
@@ -196,10 +204,8 @@ def test_binned_dispatch_on_card_matches_cpu(cuda_device, monkeypatch,
     values = score_seed_values(kmer_occurrences([genome], 11), 11)
     args = (genome, False, 11, values, 40, 1000, 2000)
     engines = [Mapper(*args, device=d).engine for d in (cuda_device, "cpu")]
-    windows = []
-    for i in range(16):
-        p = int(rng.integers(0, 115_000))
-        windows.append(genome.subsequence(p, p + 1000))
+    windows = genome_windows(genome, [int(rng.integers(0, 115_000))
+                                      for _ in range(16)])
     route = "_fused_map_bc" if shipped else "_fused_map_bd"
     out = []
     for eng in engines:
@@ -1241,10 +1247,8 @@ def test_map_dispatch_does_not_wait_on_card(cuda_device, monkeypatch, case):
     genome = random_genome(rng, 120_000)
     values = score_seed_values(kmer_occurrences([genome], 11), 11)
     args = (genome, False, 11, values, 40, 1000, 2000)
-    windows = []
-    for _ in range(32):
-        p = int(rng.integers(0, 115_000))
-        windows.append(genome.subsequence(p, p + 1000))
+    windows = genome_windows(genome, [int(rng.integers(0, 115_000))
+                                      for _ in range(32)])
     out = []
     for dev in (cuda_device, torch.device("cpu")):
         eng = Mapper(*args, device=dev).engine
@@ -1404,10 +1408,9 @@ def graph_case(case, dev, monkeypatch):
         if grid is not None:
             eng = MapEngine(eng.index, 11, nq=64, nt=eng.nt, lean=True,
                             mesh=grid)
-        wins = []
-        for _ in range(150):          # 300 rows: off the row ladder
-            p = int(rng.integers(0, 115_000))
-            wins.append(genome.subsequence(p, p + 1000))
+        # 300 rows: off the row ladder
+        wins = genome_windows(genome, [int(rng.integers(0, 115_000))
+                                       for _ in range(150)])
         packed = eng.pack_query_windows(wins)
         base_min = np.maximum(5, packed[6] // 5).astype(np.int32)
         if case in ("map_c", "map_bc"):

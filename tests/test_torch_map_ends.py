@@ -1,9 +1,12 @@
-"""The map's ends phase in arrays (``Mapper._ends_native``) against its
-Python twin (``Mapper._ends_py``) on the CPU: the native pairing call
-(``native.pair_ends``) on seeded random end-window mappings at the edges of
-every rule it follows, ``Mapper.map_batch`` with the native library and
-with it absent, and the counters of the native route.  Results and open
-lists must be equal field by field and in order (tolerance 0)."""
+"""The map's native routes against their Python twins on the CPU: the
+ends phase's pairing (``Mapper._pair_ends_native``, one call of
+``native.pair_ends``, against ``Mapper._pair_ends_py``) on seeded random
+end-window mappings at the edges of every rule it follows, the candidate
+walk (``native.walk_candidates`` against ``Mapper._walk_candidates_py``)
+on collected chunks of both gates, ``Mapper.map_batch`` with the native
+library and with it absent, and the counters of the native route.
+Results, open lists and arrays must be equal field by field and in order
+(tolerance 0)."""
 import sys
 import threading
 
@@ -14,8 +17,9 @@ import torch
 from downpore_tpu_torch import native
 from downpore_tpu_torch.core import Sequence
 from downpore_tpu_torch.mapping import Mapper
-from downpore_tpu_torch.mapping.mapper import Mapping, _EndsCounts, \
-    _dedup_by_position
+from downpore_tpu_torch.mapping.mapper import _EndsCounts, _mappings
+from downpore_tpu_torch.ops import map_engine
+from downpore_tpu_torch.ops.map_engine import WindowRows
 from downpore_tpu_torch.utils import kmer_occurrences, metrics, \
     score_seed_values
 
@@ -122,15 +126,14 @@ def test_pair_ends_matches_python(mappers, seed, circular):
         qlen = len(reads[i])
         a = _window_rows(rng, qlen, [], False, circular)
         windows += [a, _window_rows(rng, qlen, a, True, circular)]
-    end_maps = [_dedup_by_position([Mapping(reads[long_idx[w // 2]], *row)
-                                    for row in rows])
-                for w, rows in enumerate(windows)]
-    res_py = [None] * len(reads)
-    states_py = m._pair_ends_py(reads, long_idx, end_maps, res_py)
     flat = [(w, *row) for w, rows in enumerate(windows) for row in rows]
     cols = list(zip(*flat))
     accepted = tuple(np.array(c, np.int64) for c in cols[:5]) + (
         np.array(cols[5], bool), np.array(cols[6], np.int64))
+    ends = [reads[i] for i in long_idx for _ in (0, 1)]
+    res_py = [None] * len(reads)
+    states_py = m._pair_ends_py(reads, long_idx,
+                                _mappings(ends, accepted, len(ends)), res_py)
     res_nat = [None] * len(reads)
     states_nat = m._pair_ends_native(reads, long_idx, accepted, res_nat)
     assert [i for i, r in enumerate(res_nat) if r is not None] == \
@@ -154,7 +157,8 @@ def batch_reads(genome, n=24):
     """Reads of 1.5-9 kb at 8% substitutions, every second one
     reverse-complemented, a chimera, an unrelated read, two cut out of a
     longer read (their own offset and inset), and two whose codes are
-    int64 or a strided view."""
+    int64 or a strided view: short reads, both ends, mapNext and the split
+    search all get windows (``traced_map``)."""
     rng = np.random.default_rng(77)
     g = genome.codes
     reads = []
@@ -182,6 +186,19 @@ def batch_reads(genome, n=24):
     return reads
 
 
+def traced_map(m, reads):
+    """``m.map_batch(reads)`` traced, and the phases whose stage packed
+    windows (the phase span above each ``map.pack`` span's stage)."""
+    metrics.enable()
+    try:
+        got = m.map_batch(reads)
+    finally:
+        metrics.disable()
+    every = {s.id: s for ss in metrics.spans().values() for s in ss}
+    return got, {every[every[s.parent].parent].name
+                 for s in every.values() if s.name == "map.pack"}
+
+
 @pytest.mark.parametrize("circular", [False, True])
 @pytest.mark.parametrize("shards", [1, 2])
 def test_map_batch_same_without_native(monkeypatch, mappers, genome,
@@ -190,14 +207,76 @@ def test_map_batch_same_without_native(monkeypatch, mappers, genome,
     reads = batch_reads(genome)
     if shards == 2:
         monkeypatch.setattr(Mapper, "_SHARD_MIN", 4)
-    got = m.map_batch(reads)
+    got, phases = traced_map(m, reads)
     with monkeypatch.context() as mp:
         mp.setattr(native, "load", lambda: None)
-        ref = m.map_batch(reads)
+        ref, ref_phases = traced_map(m, reads)
+    assert phases == ref_phases == {"map.short", "map.ends", "map.next",
+                                    "map.split"}
     assert [[m.as_string(x) for x in ms] for ms in got] == \
         [[m.as_string(x) for x in ms] for ms in ref]
     assert [fields(ms) for ms in got] == [fields(ms) for ms in ref]
     assert sum(1 for ms in got if ms) >= 24
+
+
+@pytest.fixture(scope="module")
+def repeat_genome(genome):
+    """``genome`` with bases 10,000-13,000 copied at 30,000 (3%
+    substitutions) and, reverse-complemented, at 45,000 (6%): windows
+    there chain in three chunks, on both strands, so the walk's
+    thresholds ratchet."""
+    rng = np.random.default_rng(9)
+    g = genome.codes.copy()
+    for at, rate, rc in ((30000, 0.03, False), (45000, 0.06, True)):
+        seg = g[10000:13000].copy()
+        hit = rng.random(len(seg)) < rate
+        seg[hit] = (seg[hit] + rng.integers(1, 4, hit.sum())) % 4
+        g[at:at + len(seg)] = (3 - seg[::-1]) if rc else seg
+    return Sequence(g, id=0, name="chr")
+
+
+@pytest.mark.parametrize("circular", [False, True])
+@pytest.mark.parametrize("gate", ["flat", "binned"])
+def test_walk_same_without_native(monkeypatch, repeat_genome, gate,
+                                  circular):
+    """``Mapper._walk_candidates`` returns the same arrays, dtypes
+    included, from the native walk and from ``_walk_candidates_py`` on the
+    same collected chunks: 1 kb windows at the start, middle and end of
+    every read of ``batch_reads``, of a read across the genome's origin
+    and of the repeat's copies."""
+    genome = repeat_genome
+    values = score_seed_values(kmer_occurrences([genome], K), K)
+    chunk = 10000
+    if gate == "binned":
+        monkeypatch.setattr(map_engine, "_BINNED_MIN_C", 16)
+        monkeypatch.setattr(map_engine, "_BINNED_CB", 2)
+        chunk = 2000        # past the toy threshold
+    m = Mapper(genome, circular, K, values, 40, ES, chunk, device="cpu")
+    assert m.engine._binned == (gate == "binned")
+    g = genome.codes
+    reads = batch_reads(genome) + [
+        Sequence(np.concatenate([g[-3000:], g[:3000]]), id=99, name="o"),
+        genome.subsequence(9500, 13500)]
+    wreads = [r for r in reads for _ in range(3)]
+    lens = np.array([len(r) for r in wreads])
+    starts = np.maximum(0, np.tile([0, 1, 2], len(reads))
+                        * (lens - ES) // 2)
+    chunks = m._chunks(WindowRows.cut(wreads, starts, starts + ES))
+    walks = []
+    for load in (native.load, lambda: None):
+        monkeypatch.setattr(native, "load", load)
+        walks.append([m._walk_candidates(sub, n, coll, lo)
+                      for lo, sub, n, coll in chunks])
+    got, ref = walks
+    assert len(got) == len(ref) == 1 and len(got[0]) == 7
+    for a, b in zip(got[0], ref[0]):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    win, rc = got[0][0], got[0][5]
+    assert rc.any() and not rc.all()
+    # a repeat window accepts chains at more than one copy
+    assert max((win == w).sum() for w in range(len(wreads) - 3,
+                                               len(wreads))) > 1
 
 
 def test_ends_counters_sum_to_long_reads(monkeypatch, mappers, genome):

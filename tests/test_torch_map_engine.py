@@ -39,6 +39,11 @@ def mappers():
     return genome, JaxMapper(*args), TorchMapper(*args, device=CPU)
 
 
+def rows(wins):
+    """The torch engine's form of the windows ``wins``."""
+    return tme.WindowRows.cut(wins, 0, [len(w) for w in wins])
+
+
 def windows(genome, n, seed):
     rng = np.random.default_rng(seed)
     out = []
@@ -130,7 +135,7 @@ def test_derive_buckets_and_counts_match_jax(mappers):
 def test_count_rows_bounded_chunks_match_one_block(mappers, monkeypatch):
     genome, _, tm = mappers
     te = tm.engine
-    packed = te.pack_query_windows(windows(genome, 40, 6))
+    packed = te.pack_query_windows(rows(windows(genome, 40, 6)))
     rb, db = tme._derive_buckets(torch.from_numpy(packed[0]),
                                  te.usable_dev, te.H, te._hashed)
     whole = tme._count_rows_pair(te.membership, rb, db)
@@ -194,10 +199,10 @@ def test_pack_query_windows_matches_jax(mappers, monkeypatch):
     genome, jm, tm = mappers
     wins = windows(genome, 20, 10) + [genome.subsequence(0, 5)]
     ref = jm.engine.pack_query_windows(wins)
-    native = tm.engine.pack_query_windows(wins)
+    native = tm.engine.pack_query_windows(rows(wins))
     monkeypatch.setattr(tm.engine, "_pack_windows_native",
                         lambda *a: None)
-    numpy_path = tm.engine.pack_query_windows(wins)
+    numpy_path = tm.engine.pack_query_windows(rows(wins))
     for r, n, p in zip(ref, native, numpy_path):
         np.testing.assert_array_equal(r, n)
         np.testing.assert_array_equal(r, p)

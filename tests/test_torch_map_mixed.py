@@ -26,7 +26,7 @@ from downpore_tpu.mapping import Mapper as JaxMapper
 from downpore_tpu_torch.core.sequence import Sequence
 from downpore_tpu_torch.mapping import Mapper
 from downpore_tpu_torch.ops import map_engine
-from downpore_tpu_torch.ops.map_engine import MapEngine
+from downpore_tpu_torch.ops.map_engine import MapEngine, WindowRows
 from downpore_tpu_torch.utils import (kmer_occurrences, metrics,
                                       score_seed_values)
 
@@ -275,7 +275,8 @@ def _capped_windows(g, eng):
     drawn = generate.sample_reads(rng, g, 48, 1000, 1001, 0.08)
     windows = [Sequence.from_string(s.tobytes().decode(), id=i, name=f"w{i}")
                for i, s in enumerate(drawn.seqs)]
-    packed = eng.pack_query_windows(windows)
+    packed = eng.pack_query_windows(
+        WindowRows.cut(windows, 0, [len(w) for w in windows]))
     return packed, np.maximum(5, packed[6] // 5).astype(np.int32)
 
 
