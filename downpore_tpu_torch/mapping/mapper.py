@@ -26,7 +26,7 @@ import numpy as np
 
 from .. import native, resolve_device
 from ..core.sequence import Sequence
-from ..ops.chain import unpack_summary
+from ..ops.chain import summary_columns, unpack_summary
 from ..ops.map_engine import MapEngine, WindowRows
 from ..seeds import SeedIndex
 from ..utils.metrics import counter, span, traced
@@ -73,6 +73,13 @@ class Mapping:
 
 
 class Mapper:
+    """Read-to-reference mapper on a resident ``MapEngine``.  The class's
+    ``walk_native_rows`` sums, over every mapper, the collected rows the
+    native walk read in place (the counter ``map.walk.native_rows``)."""
+
+    walk_native_rows = 0
+    _walk_lock = threading.Lock()
+
     def __init__(self, reference: Sequence, circular: bool, k: int,
                  kmer_values: np.ndarray, seed_rate: int = 40,
                  edge_size: int = 1000, chunk_size: int = 10000,
@@ -193,55 +200,69 @@ class Mapper:
         collected rows.  The native walk runs when the host library
         loaded; its pure-Python twin otherwise.
 
-        The walk reads the summaries and the 2/3-coverage rule of every
-        (pair, chain), computed with numpy over the whole fetched batch;
-        the remaining loop applies only the *sequential* adaptive-threshold
-        rules the reference defines over the candidate walk order
-        (thresholds ratchet up as chains are accepted, affecting later
-        candidates of the same query).  The mappings' geometry (reference
-        start/end, query offset/inset) is computed for the accepted chains
-        alone: a repeat-rich genome's batch holds millions of pairs and
-        accepts a few per query."""
+        The native walk reads the collected head and summary matrices in
+        place, one pass in row order, and applies the 2/3-coverage rule to
+        the chains it is about to accept alone: a repeat-rich genome's
+        batch holds millions of rows, and no array of that size is built
+        on the host around the walk (``map.walk.native_rows`` counts the
+        rows it read).  The walk is sequential because thresholds ratchet
+        up as chains are accepted, affecting later candidates of the same
+        query.  The mappings' geometry (reference start/end, query
+        offset/inset) is computed for the accepted chains alone."""
         if coll is None or coll[0].shape[0] == 0:
             return None
         head, packed = coll
         k = self.k
         K = 4
-        s = unpack_summary(packed, K, lean=self.engine.lean)
-        mi = head[:, 0]
         nq = len(rows)
-        qi_row = mi >> 1
         qlen, qoff, qins = rows.lens, rows.offset, rows.inset
-        sqp, stp = s["top_sqp"], s["top_stp"]
-        eqp, etp = s["top_eqp"], s["top_etp"]
-        ql = qlen[qi_row].astype(np.int32)[:, None]
-        ok23 = (sqp + (ql - eqp - k)) <= (ql * 2) // 3
+        col = summary_columns(K, lean=self.engine.lean)
         # rows are sorted by mi (query-major compaction order)
-        walk = (np.searchsorted(mi, np.arange(2 * nq + 1)), num_seeds, nq,
-                np.ascontiguousarray(head[:, 2]), s["best"], s["top_valid"],
-                s["top_len"], s["top_cov_t"], eqp, etp, sqp, stp, ok23, K)
-        acc = native.walk_candidates(*walk)
+        bounds = np.searchsorted(head[:, 0], np.arange(2 * nq + 1))
+        acc = native.walk_candidates(bounds, num_seeds, nq, head, packed,
+                                     col, qlen, k, K)
         if acc is None:
-            acc = self._walk_candidates_py(*walk)
-        acc_qi, b, j, is_rc = acc
+            acc = self._walk_candidates_py(
+                *self._walk_columns(bounds, num_seeds, head, packed, qlen,
+                                    k, K, self.engine.lean))
+        else:
+            with Mapper._walk_lock:
+                Mapper.walk_native_rows += head.shape[0]
+        qi, b, j, is_rc = acc
         eng = self.engine
         ci = head[b, 1]
-        qi = qi_row[b]
+
+        def top(name):
+            return packed[b, col[name] + j]
+
         # RC rows swap offset/inset (Sequence.reverse_complement)
         moff = np.where(is_rc, qins[qi], qoff[qi])
         mins_ = np.where(is_rc, qoff[qi], qins[qi])
         ref_len = len(self.reference)
-        start = eng.chunk_off[ci] + stp[b, j]
+        start = eng.chunk_off[ci] + top("top_stp")
         end = ref_len - eng.chunk_inset[ci] \
-            - (eng.chunk_len[ci] - etp[b, j] - k)
+            - (eng.chunk_len[ci] - top("top_etp") - k)
         if self.circular:
             start = np.where(start > ref_len, start - ref_len, start)
-        qil = qlen[qi] - eqp[b, j] - k
-        sq = sqp[b, j]
-        return (acc_qi.astype(np.int64) + base, start, end,
+        qil = qlen[qi] - top("top_eqp") - k
+        sq = top("top_sqp")
+        return (qi.astype(np.int64) + base, start, end,
                 np.where(is_rc, qil + mins_, sq + moff),
                 np.where(is_rc, sq + moff, qil + mins_), is_rc,
-                s["top_cov_t"][b, j])
+                top("top_cov_t"))
+
+    @staticmethod
+    def _walk_columns(bounds, num_seeds, head, packed, qlen, k: int, K: int,
+                      lean: bool) -> tuple:
+        """``_walk_candidates_py``'s arguments: the summary's columns
+        unpacked and the 2/3-coverage rule of every (row, chain)."""
+        s = unpack_summary(packed, K, lean=lean)
+        sqp, eqp = s["top_sqp"], s["top_eqp"]
+        ql = qlen[head[:, 0] >> 1].astype(np.int32)[:, None]
+        ok23 = (sqp + (ql - eqp - k)) <= (ql * 2) // 3
+        return (bounds, num_seeds, len(qlen), head[:, 2], s["best"],
+                s["top_valid"], s["top_len"], s["top_cov_t"], eqp,
+                s["top_etp"], sqp, s["top_stp"], ok23, K)
 
     @staticmethod
     def _walk_candidates_py(bounds, num_seeds, nq: int, dc, best, tv, tl,
@@ -676,6 +697,9 @@ class Mapper:
 
     def map(self, read: Sequence) -> List[Mapping]:
         return self.map_batch([read])[0]
+
+
+counter("map.walk.native_rows", lambda: Mapper.walk_native_rows)
 
 
 def _mappings(queries, accepted, n: int) -> List[List[Mapping]]:

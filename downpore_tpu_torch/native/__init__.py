@@ -115,10 +115,10 @@ def load() -> Optional[ctypes.CDLL]:
                                             ctypes.c_int64, u8p, i32p]
         L.add_single_seeds_walk.restype = ctypes.c_int64
         L.walk_candidates.argtypes = [i64p, i64p, ctypes.c_int64,
-                                      i32p, i32p, u8p, i32p, i32p, i32p,
+                                      i32p, i32p, ctypes.c_int64, i32p,
+                                      i64p, ctypes.c_int32, ctypes.c_int32,
                                       i32p, i32p, i32p, u8p,
-                                      ctypes.c_int32, i32p, i32p, i32p,
-                                      u8p, ctypes.c_int64]
+                                      ctypes.c_int64]
         L.walk_candidates.restype = ctypes.c_int64
         L.pair_ends.argtypes = [
             ctypes.c_int64, i64p, ctypes.c_int64, i64p, i64p, i64p, i64p,
@@ -320,45 +320,50 @@ def add_single_seeds_walk(kmers: np.ndarray, vals: np.ndarray, n: int,
     return out[:cnt]
 
 
+# the summary fields the walk reads, in the order of its column offsets
+WALK_FIELDS = ("best", "top_valid", "top_sqp", "top_stp", "top_eqp",
+               "top_etp", "top_cov_t", "top_len")
+
+
 def walk_candidates(bounds: np.ndarray, num_seeds: np.ndarray, nq: int,
-                    dc: np.ndarray, best: np.ndarray, tv: np.ndarray,
-                    tl: np.ndarray, ct: np.ndarray, eq: np.ndarray,
-                    et: np.ndarray, sq: np.ndarray, st: np.ndarray,
-                    ok23: np.ndarray, K: int):
+                    head: np.ndarray, packed: np.ndarray, cols: dict,
+                    qlen: np.ndarray, k: int, K: int):
     """Sequential adaptive-threshold mapper candidate walk (exact twin of
     the Python loop in ``mapping.mapper._walk_candidates_py``; ref
-    mapping/mapping.go:494-589).  Returns accepted ``(qi, b, j, rc)``
-    arrays in walk order, or None without the toolchain."""
+    mapping/mapping.go:494-589), read in place from the collected rows:
+    ``head`` [N, 3] (query row, chunk, distinct count) and the packed
+    summaries ``packed`` [N, W], whose fields start at the columns
+    ``cols`` names (``ops.chain.summary_columns``); ``qlen`` holds the
+    windows' lengths, for the 2/3-coverage rule.  One pass in row order;
+    neither matrix is copied when it arrives C-contiguous int32, as the
+    collect hands it.  Returns accepted ``(qi, b, j, rc)`` arrays in walk
+    order, or None without the toolchain."""
     L = load()
     if L is None or not hasattr(L, "walk_candidates"):
         return None
-    N = dc.shape[0]
+    head = np.ascontiguousarray(head, np.int32)
+    packed = np.ascontiguousarray(packed, np.int32)
+    N, W = packed.shape
+    offs = np.array([cols[f] for f in WALK_FIELDS], np.int32)
     bounds = np.ascontiguousarray(bounds, np.int64)
     num_seeds = np.ascontiguousarray(num_seeds, np.int64)
-    dc = np.ascontiguousarray(dc, np.int32)
-    best = np.ascontiguousarray(best, np.int32)
-    tv = np.ascontiguousarray(tv, np.uint8)
-    tl = np.ascontiguousarray(tl, np.int32)
-    ct = np.ascontiguousarray(ct, np.int32)
-    eq = np.ascontiguousarray(eq, np.int32)
-    et = np.ascontiguousarray(et, np.int32)
-    sq = np.ascontiguousarray(sq, np.int32)
-    st = np.ascontiguousarray(st, np.int32)
-    ok23 = np.ascontiguousarray(ok23, np.uint8)
+    qlen = np.ascontiguousarray(qlen, np.int64)
+    if (head.shape != (N, 3) or offs.min() < 0 or offs[0] >= W
+            or offs[1:].max() + K > W or len(bounds) != 2 * nq + 1
+            or len(num_seeds) < 2 * nq or len(qlen) < nq
+            or bounds.min() < 0 or bounds.max() > N
+            or (np.diff(bounds) < 0).any()):
+        raise ValueError("walk_candidates: rows, columns and bounds "
+                         "disagree")
     cap = max(1, N * K)
     out_qi = np.empty(cap, np.int32)
     out_b = np.empty(cap, np.int32)
     out_j = np.empty(cap, np.int32)
     out_rc = np.empty(cap, np.uint8)
     cnt = L.walk_candidates(
-        _ptr(bounds, ctypes.c_int64), _ptr(num_seeds, ctypes.c_int64), nq,
-        _ptr(dc, ctypes.c_int32), _ptr(best, ctypes.c_int32),
-        _ptr(tv, ctypes.c_uint8), _ptr(tl, ctypes.c_int32),
-        _ptr(ct, ctypes.c_int32), _ptr(eq, ctypes.c_int32),
-        _ptr(et, ctypes.c_int32), _ptr(sq, ctypes.c_int32),
-        _ptr(st, ctypes.c_int32), _ptr(ok23, ctypes.c_uint8), K,
-        _ptr(out_qi, ctypes.c_int32), _ptr(out_b, ctypes.c_int32),
-        _ptr(out_j, ctypes.c_int32), _ptr(out_rc, ctypes.c_uint8), cap)
+        _ptr(bounds), _ptr(num_seeds), nq, _ptr(head), _ptr(packed), W,
+        _ptr(offs), _ptr(qlen), k, K, _ptr(out_qi), _ptr(out_b),
+        _ptr(out_j), _ptr(out_rc), cap)
     if cnt < 0:
         return None
     cnt = min(int(cnt), cap)  # cap = N*K is the true worst case

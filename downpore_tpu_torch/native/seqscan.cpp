@@ -405,20 +405,22 @@ extern "C" int64_t add_single_seeds_walk(const int32_t* kmers,
 
 // Sequential adaptive-threshold candidate walk for the mapper
 // (performMapping's accept loop, ref: mapping/mapping.go:494-589; exact
-// twin of the Python loop in mapping.mapper._walk_candidates_py).  Row
-// ranges per query come from `bounds` ([2*nq+1], rows sorted query-major
-// with the forward row first); per-row chain stats are the K top chains
-// of the fused-map summary.  Thresholds ratchet up as chains are
-// accepted, affecting LATER candidates of the same query — hence a walk,
-// not a filter.  Emits accepted (query, row, chain, rc) tuples in the
-// reference's walk order; returns the count (caller truncates at cap).
+// twin of the Python loop in mapping.mapper._walk_candidates_py), read in
+// place from the collected rows: row b's head (query row, chunk, distinct
+// count) at head[3b..3b+2], its packed summary at packed[W*b..W*b+W-1],
+// each field's first column in `cols` (best, top_valid, top_sqp, top_stp,
+// top_eqp, top_etp, top_cov_t, top_len; a top field's K chains follow its
+// first).  Row ranges per query come from `bounds` ([2*nq+1], rows sorted
+// query-major with the forward row first); `qlen` holds the windows'
+// lengths.  Thresholds ratchet up as chains are accepted, affecting LATER
+// candidates of the same query — hence a walk, not a filter.  The
+// 2/3-coverage rule is applied to the chains about to be accepted alone.
+// Emits accepted (query, row, chain, rc) tuples in the reference's walk
+// order; returns the count (caller truncates at cap).
 extern "C" int64_t walk_candidates(
     const int64_t* bounds, const int64_t* num_seeds, int64_t nq,
-    const int32_t* dc, const int32_t* best,
-    const uint8_t* tv, const int32_t* tl, const int32_t* ct,
-    const int32_t* eq, const int32_t* et,
-    const int32_t* sq, const int32_t* st,
-    const uint8_t* ok23, int32_t K,
+    const int32_t* head, const int32_t* packed, int64_t W,
+    const int32_t* cols, const int64_t* qlen, int32_t k, int32_t K,
     int32_t* out_qi, int32_t* out_b, int32_t* out_j, uint8_t* out_rc,
     int64_t cap) {
     int64_t cnt = 0;
@@ -426,6 +428,9 @@ extern "C" int64_t walk_candidates(
     int32_t key_sq[16], key_st[16], val_j[16];
     int32_t s0[16], s1[16], s2[16], s3[16];
     if (K > 16) return -1;
+    const int32_t c_best = cols[0], c_tv = cols[1], c_sq = cols[2],
+                  c_st = cols[3], c_eq = cols[4], c_et = cols[5],
+                  c_ct = cols[6], c_tl = cols[7];
     for (int64_t qi = 0; qi < nq; qi++) {
         const int64_t lo_f = bounds[2 * qi], hi_f = bounds[2 * qi + 1];
         const int64_t hi_r = bounds[2 * qi + 2];
@@ -434,20 +439,27 @@ extern "C" int64_t walk_candidates(
         if (min_matches < 5) min_matches = 5;
         int64_t min_rc = num_seeds[2 * qi + 1] / 5;
         if (min_rc < 5) min_rc = 5;
+        // the 2/3 rule, sq + (ql - eq - k) <= ql * 2 / 3, in int64: the
+        // values are window coordinates, far inside int32, so this is
+        // numpy's int32 result (and ql >= 0, so / is //)
+        const int64_t ql = (int32_t)qlen[qi];
+        const int64_t ql23 = (ql * 2) / 3;
         for (int pass = 0; pass < 2; pass++) {
             const int64_t lo = pass ? hi_f : lo_f;
             const int64_t hi = pass ? hi_r : hi_f;
             const bool rc = pass != 0;
             for (int64_t b = lo; b < hi; b++) {
                 const int64_t cur_min = rc ? min_rc : min_matches;
-                if (dc[b] < cur_min || best[b] < cur_min) continue;
-                const int64_t off = b * K;
+                const int32_t* r = packed + b * W;
+                if (head[3 * b + 2] < cur_min || r[c_best] < cur_min)
+                    continue;
                 int n_keys = 0;
                 for (int j = 0; j < K; j++) {
-                    if (!tv[off + j] || tl[off + j] < cur_min) continue;
-                    const int32_t ksq = sq[off + j], kst = st[off + j];
-                    const int32_t a0 = tl[off + j], a1 = ct[off + j];
-                    const int32_t a2 = eq[off + j], a3 = et[off + j];
+                    const int32_t a0 = r[c_tl + j];
+                    if (!r[c_tv + j] || a0 < cur_min) continue;
+                    const int32_t ksq = r[c_sq + j], kst = r[c_st + j];
+                    const int32_t a1 = r[c_ct + j];
+                    const int32_t a2 = r[c_eq + j], a3 = r[c_et + j];
                     int found = -1;
                     for (int m = 0; m < n_keys; m++) {
                         if (key_sq[m] == ksq && key_st[m] == kst) {
@@ -476,7 +488,8 @@ extern "C" int64_t walk_candidates(
                 }
                 for (int m = 0; m < n_keys; m++) {
                     const int j = val_j[m];
-                    if (!ok23[off + j]) continue;
+                    if ((int64_t)key_sq[m] + (ql - s2[m] - k) > ql23)
+                        continue;
                     if (cnt < cap) {
                         out_qi[cnt] = (int32_t)qi;
                         out_b[cnt] = (int32_t)b;

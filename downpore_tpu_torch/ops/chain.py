@@ -243,19 +243,24 @@ LEAN_TOPS = ["top_valid", "top_sqp", "top_stp", "top_eqp", "top_etp",
              "top_cov_t", "top_len"]
 
 
+def summary_columns(top_k: int = 4, lean: bool = False) -> dict:
+    """Each field's first column in the packed summary rows: a scalar's
+    column, a top field's first of ``top_k``."""
+    scalars = LEAN_SCALARS if lean else SUMMARY_SCALARS
+    tops = LEAN_TOPS if lean else SUMMARY_TOPS
+    cols = {name: c for c, name in enumerate(scalars)}
+    cols.update((name, len(scalars) + i * top_k)
+                for i, name in enumerate(tops))
+    return cols
+
+
 def unpack_summary(packed: np.ndarray, top_k: int = 4,
                    lean: bool = False) -> dict:
     """Split the packed summary array back into the named dict."""
     scalars = LEAN_SCALARS if lean else SUMMARY_SCALARS
-    tops = LEAN_TOPS if lean else SUMMARY_TOPS
-    out = {}
-    c = 0
-    for name in scalars:
-        out[name] = packed[:, c]
-        c += 1
-    for name in tops:
-        out[name] = packed[:, c : c + top_k]
-        c += top_k
+    out = {name: packed[:, c] if name in scalars
+           else packed[:, c : c + top_k]
+           for name, c in summary_columns(top_k, lean).items()}
     out["top_valid"] = out["top_valid"].astype(bool)
     return out
 
