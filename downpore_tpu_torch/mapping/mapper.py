@@ -53,6 +53,32 @@ counter("map.ends.native_reads", lambda: _ENDS.native_reads)
 counter("map.ends.open_reads", lambda: _ENDS.open_reads)
 
 
+class _StageCounts:
+    """Work of the short path and the later stages, summed over the shard
+    threads: reads through ``map.short`` (``map.short.reads``), windows of
+    mapNext's two rounds (``map.next.windows``), and the split search's
+    pack/dispatch/collect rounds and their windows (``map.split.rounds``,
+    ``map.split.windows``)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.short_reads = 0
+        self.next_windows = 0
+        self.split_rounds = 0
+        self.split_windows = 0
+
+    def add(self, name: str, n: int) -> None:
+        with self.lock:
+            setattr(self, name, getattr(self, name) + n)
+
+
+_STAGES = _StageCounts()
+counter("map.short.reads", lambda: _STAGES.short_reads)
+counter("map.next.windows", lambda: _STAGES.next_windows)
+counter("map.split.rounds", lambda: _STAGES.split_rounds)
+counter("map.split.windows", lambda: _STAGES.split_windows)
+
+
 class Mapping:
     """One mapped region (ref: mapping/mapping.go:11-20)."""
     __slots__ = ("query", "start", "end", "query_offset", "query_inset",
@@ -427,6 +453,7 @@ class Mapper:
         long_idx = [i for i, r in enumerate(reads) if len(r) > 2 * es]
         # short reads: one window each, the whole read (its end clipped)
         with span("map.short"):
+            _STAGES.add("short_reads", len(short_idx))
             shorts = [reads[i] for i in short_idx]
             for i, ms in zip(short_idx, self._map_windows(shorts, 0, 2 * es)):
                 results[i] = _remove_dominated(ms, ms, len(reads[i]))
@@ -530,6 +557,7 @@ class Mapper:
                 cuts.append((i, "mid", es, n - es))
             else:
                 cuts += [(i, "a1", es, es * 2), (i, "b1", n - es * 2, n - es)]
+        _STAGES.add("next_windows", len(cuts))
         new_by_read = self._map_cuts(reads, cuts)
         need_round2 = []
         for i, tags in new_by_read.items():
@@ -577,6 +605,7 @@ class Mapper:
                 cuts.append((i, "a2", es * 2, es * 3))
             if n > es * 6:
                 cuts.append((i, "b2", n - es * 3, n - es * 2))
+        _STAGES.add("next_windows", len(cuts))
         new_by_read = self._map_cuts(reads, cuts)
         for i in need_round2:
             open_a, open_b = states[i]
@@ -637,6 +666,8 @@ class Mapper:
                 if not active:
                     break
                 continue
+            _STAGES.add("split_rounds", 1)
+            _STAGES.add("split_windows", len(metas))
             starts = np.array([start for _, start in metas], np.int64)
             maps = self._map_windows([reads[i] for i, _ in metas], starts,
                                      starts + es)
